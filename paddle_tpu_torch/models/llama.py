@@ -1,13 +1,18 @@
-"""Llama serving model: prefill, then greedy decode over a dense KV cache.
+"""Llama: training (``forward(input_ids, labels=)``, with per-layer
+recompute) and serving (prefill, then greedy decode over a dense KV cache).
 
 Counterpart of ``paddle_tpu/models/llama.py`` (config, RoPE, GQA attention,
-the unrolled decoder stack, ``prefill``/``decode_step``/``generate``).
-Prefill attention runs the flash kernel and every norm the RMSNorm kernel
-when the model lies on the card. The one-token decode attention is plain
-PyTorch, as it was XLA code in the JAX package.
+the unrolled decoder stack, the LM loss, ``prefill``/``decode_step``/
+``generate``). The layers train: full-sequence attention runs the flash
+kernels (forward and backward) and every norm the RMSNorm kernels when the
+model lies on the card. The one-token decode attention is plain PyTorch, as
+it was XLA code in the JAX package.
 
-Not ported yet: MoE, the scanned stack, context parallelism, the paged
-routes, beam search, sampling, int8 caches, attention masks and training.
+Not ported yet: MoE, context parallelism, the paged routes, beam search,
+sampling, int8 caches and attention masks. ``scan_layers`` is accepted and
+runs the unrolled stack (in the JAX package it is a compile-time device
+with the unrolled loop's numerics); selective recompute recomputes whole
+layers, as the JAX package's unrolled path does.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 from torch import nn
 
 from ..device import default_device, to_torch_dtype
+from ..distributed.fleet.recompute import recompute
 from ..nn import functional as F
 from ..nn.layers import Embedding, Linear, RMSNorm
 from .generation import generate_loop, resolve_s_max
@@ -40,6 +46,14 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     initializer_range: float = 0.02
     dtype: str = "float32"
+    # re-run each decoder layer's forward in the backward instead of keeping
+    # its activations (training only)
+    use_recompute: bool = False
+    # "full" or "selective": both recompute whole layers in the port
+    recompute_granularity: str = "full"
+    # accepted for the JAX package's configs; the port runs the unrolled
+    # stack either way
+    scan_layers: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -146,11 +160,6 @@ class LlamaAttention(nn.Module):
         if return_kv:
             # decode-cache layout [B, KV, S, D], post-RoPE, GQA unexpanded
             kv_out = (k.transpose(1, 2), v.transpose(1, 2))
-        if kv != h and q.device.type != "cuda":
-            # the dense CPU path wants every head; the kernel reads GQA
-            # natively
-            k = k.repeat_interleave(h // kv, dim=2)
-            v = v.repeat_interleave(h // kv, dim=2)
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         out = self.o_proj(out.reshape(b, s, h * d))
         if return_kv:
@@ -255,13 +264,15 @@ class LlamaModel(nn.Module):
         s = input_ids.shape[1]
         hidden = self.embed_tokens(input_ids)
         cos, sin = self._cos[:s], self._sin[:s]
+        remat = self.config.use_recompute and self.training
         for layer in self.layers:
-            hidden = layer(hidden, cos, sin)
+            hidden = (recompute(layer, hidden, cos, sin) if remat
+                      else layer(hidden, cos, sin))
         return self.norm(hidden)
 
 
 class LlamaForCausalLM(nn.Module):
-    """Llama for serving. Runs on the current CUDA card unless ``device`` is
+    """Llama for training and serving. Runs on the current CUDA card unless ``device`` is
     given (the tests pass ``device="cpu"``); with no card and no device it
     raises. Weights are drawn from ``generator`` (default: one on the model's
     device seeded with 0) as N(0, initializer_range), norms set to 1; load
@@ -294,12 +305,23 @@ class LlamaForCausalLM(nn.Module):
             return F.linear(hidden, self.model.embed_tokens.weight)
         return self.lm_head(hidden)
 
-    def forward(self, input_ids):
-        """Logits [B, S, V] of a full forward pass."""
-        return self._lm_logits(self.model(input_ids))
+    def forward(self, input_ids, labels=None):
+        """Logits [B, S, V] of a full forward pass; with ``labels`` [B, S]
+        also the mean cross entropy over the labels that are not -100,
+        computed on float32 logits, as ``(logits, loss)``. Labels are not
+        shifted: the caller aligns them with the positions, as in the JAX
+        package."""
+        logits = self._lm_logits(self.model(input_ids))
+        if labels is None:
+            return logits
+        loss = F.cross_entropy(
+            logits.reshape(-1, self.config.vocab_size).float(),
+            labels.reshape(-1))
+        return logits, loss
 
     # -- incremental (KV-cache) decode: the serving path --------------------
 
+    @torch.no_grad()
     def prefill(self, input_ids, s_max):
         """Prompt pass. Returns (last_logits [B, 1, V],
         caches [L, 2, B, KV, s_max, D], t [B, 1] int32)."""
@@ -308,6 +330,7 @@ class LlamaForCausalLM(nn.Module):
         t = torch.full((b, 1), s, dtype=torch.int32, device=input_ids.device)
         return self._lm_logits(hidden[:, s - 1:s]), caches, t
 
+    @torch.no_grad()
     def decode_step(self, tok, caches, t):
         """One token through every layer's cache. tok [B, 1] int; caches
         [L, 2, B, KV, S_max, D], updated in place at t; t [B, 1] int32.

@@ -1,18 +1,21 @@
-"""Functional ops of the serving path (counterpart of
+"""Functional ops of the serving and training paths (counterpart of
 ``paddle_tpu/nn/functional.py``).
 
-CUDA tensors go to the Hopper kernels; CPU tensors take the plain paths the
-JAX package takes off the TPU. Nothing here falls back from a kernel to a
-plain path on the card.
+``rms_norm`` and ``scaled_dot_product_attention`` run through autograd
+Functions whose forward and backward are the Hopper kernels for CUDA
+tensors and their plain versions for CPU tensors. With grad mode off (the
+serving path) they call the forward directly: the Function would record
+nothing, and its dispatch costs host time on every decode step. Nothing
+here falls back from a kernel to a plain path on the card.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 import torch.nn.functional as _tF
 
-from ..ops.hopper import flash_attention, rms_norm as _rms_norm_kernel
+from ..ops.hopper import (FlashAttentionFunction, RMSNormFunction,
+                          flash_attention)
+from ..ops.hopper import rms_norm as _rms_norm_fwd
 
 
 def linear(x, weight, bias=None):
@@ -30,33 +33,37 @@ def silu(x):
 
 
 def rms_norm(x, weight, epsilon=1e-6):
-    """RMSNorm over the last dimension, through the fused kernel on the card
-    and its plain version on the CPU (both round once, as the TPU kernel
-    does)."""
-    return _rms_norm_kernel(x, weight, epsilon)[0]
-
-
-def _sdpa_dense(query, key, value, is_causal=False):
-    """The JAX package's dense path (``_sdpa_op``), layout [B, S, H, D]:
-    scores in the query's type, probabilities in float32 cast back to the
-    query's type before P . V. Heads must already match (GQA expanded)."""
-    d = query.shape[-1]
-    scale = 1.0 / math.sqrt(d)
-    q, k, v = (t.transpose(1, 2) for t in (query, key, value))
-    scores = (q @ k.transpose(-1, -2)) * scale
-    if is_causal:
-        sq, sk = q.shape[2], k.shape[2]
-        keep = torch.ones(sq, sk, dtype=torch.bool,
-                          device=query.device).tril(sk - sq)
-        scores = scores.masked_fill(~keep, torch.finfo(scores.dtype).min)
-    probs = torch.softmax(scores.float(), dim=-1).to(query.dtype)
-    return (probs @ v).transpose(1, 2)
+    """RMSNorm over the last dimension (both versions round once, as the TPU
+    kernel does), differentiable through the backward kernel."""
+    if not torch.is_grad_enabled():
+        return _rms_norm_fwd(x, weight, epsilon)[0]
+    return RMSNormFunction.apply(x, weight, epsilon)
 
 
 def scaled_dot_product_attention(query, key, value, is_causal=False):
-    """Attention over [B, S, H, D]. On the card it is the flash kernel (GQA
-    native, equal q/k lengths; anything else raises); on the CPU it is the
-    dense path with heads already expanded, as in the JAX package."""
-    if query.device.type == "cuda":
-        return flash_attention(query, key, value, causal=is_causal)[0]
-    return _sdpa_dense(query, key, value, is_causal)
+    """Attention over [B, S, H, D] with the flash semantics: GQA native
+    (key/value may carry fewer heads), equal q/k lengths, no mask.
+    Differentiable through the flash backward kernels on the card and their
+    plain versions on the CPU."""
+    if not torch.is_grad_enabled():
+        return flash_attention(query, key, value, is_causal)[0]
+    return FlashAttentionFunction.apply(query, key, value, is_causal)[0]
+
+
+def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
+    """Softmax cross entropy of logits ``[N, C]`` against int labels
+    ``[N]``; labels equal to ``ignore_index`` contribute nothing and, with
+    ``reduction="mean"``, the sum is divided by the count of the others
+    (at least 1), as the JAX package does."""
+    label = label.long()
+    loss = _tF.cross_entropy(input, label, ignore_index=ignore_index,
+                             reduction="none")
+    if reduction == "none":
+        return loss
+    total = loss.sum()
+    if reduction == "sum":
+        return total
+    if reduction != "mean":
+        raise ValueError(f"unknown reduction {reduction!r}")
+    valid = (label != ignore_index).sum().clamp_min(1)
+    return total / valid.to(total.dtype)

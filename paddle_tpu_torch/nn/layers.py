@@ -1,9 +1,11 @@
-"""Layers of the serving path (counterparts of ``paddle_tpu/nn/common.py``
-``Linear``/``Embedding`` and ``paddle_tpu/nn/norm.py`` ``RMSNorm``).
+"""Layers of the serving and training paths (counterparts of
+``paddle_tpu/nn/common.py`` ``Linear``/``Embedding`` and
+``paddle_tpu/nn/norm.py`` ``RMSNorm``).
 
 Parameters are created empty on an explicit device and type, and filled by
 the model from an explicit ``torch.Generator`` (or by ``load_state_dict``).
-They do not require grad: this slice serves and does not train.
+They train: every parameter requires grad, as the JAX package's parameters
+are trainable by default.
 """
 from __future__ import annotations
 
@@ -14,8 +16,7 @@ from . import functional as F
 
 
 def _param(*shape, device, dtype):
-    return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(*shape, device=device, dtype=dtype))
 
 
 class Linear(nn.Module):

@@ -31,14 +31,9 @@
 //     are never written. Masked scores are -1e30 and their probabilities
 //     are forced to 0, so a fully masked tile cannot produce NaN.
 //   * GQA is index arithmetic: q-head h reads kv-head h / (hq / hkv).
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int kBlockM = 64;   // Q rows per block
-constexpr int kBlockN = 64;   // K/V rows per tile
-constexpr int kThreads = 256; // 16 x 16 threads, each 4 rows of the tile
-constexpr float kNegInf = -1e30f;
 
 template <int D>
 struct Smem {
@@ -49,56 +44,6 @@ struct Smem {
       kBlockM * kLdQ + kBlockN * kLdKV + kBlockM * kLdP;
   static constexpr int kBytes = kFloats * static_cast<int>(sizeof(float));
 };
-
-// Copy `rows` x D elements of a [*, row_stride] tensor into float32 shared
-// memory (leading dimension ld), scaled, zero-filling rows past `valid`.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          size_t row_stride, int valid,
-                                          float scale) {
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int kChunks = kBlockN * D / kVec;
-  for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-    const int r = c / (D / kVec);
-    const int col = (c % (D / kVec)) * kVec;
-    float vals[kVec];
-    if (r < valid) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(src + r * row_stride + col);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) vals[i] = to_f32(e[i]) * scale;
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) vals[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kVec; i += 4) {
-      *reinterpret_cast<float4*>(dst + r * ld + col + i) =
-          make_float4(vals[i], vals[i + 1], vals[i + 2], vals[i + 3]);
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store4(T* dst, float a, float b, float c,
-                                       float d);
-template <>
-__device__ __forceinline__ void store4<float>(float* dst, float a, float b,
-                                              float c, float d) {
-  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-}
-template <>
-__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* dst,
-                                                      float a, float b,
-                                                      float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 packed;
-  packed.x = *reinterpret_cast<uint32_t*>(&lo);
-  packed.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = packed;
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)

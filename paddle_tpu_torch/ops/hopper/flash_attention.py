@@ -1,12 +1,14 @@
-"""Flash attention forward: the hand-written Hopper kernel and its plain
-version.
+"""Flash attention forward and backward: the hand-written Hopper kernels and
+their plain versions.
 
 Counterpart: ``paddle_tpu/ops/pallas/flash_attention.py`` (``_fwd_kernel``
-through ``_fwd_call`` and ``flash_attention_pallas``). The kernel is
-``csrc/flash_attention.cu``. The public layout stays ``[b, s, h, d]``, GQA
-is native (k/v carry ``hkv`` heads with ``hq % hkv == 0``), and the outputs
-are O and the float32 log-sum-exp ``[b, hq, s]``. The additive mask,
-``kv_seqlens``, dropout and the two backward kernels are not ported yet.
+through ``_fwd_call``; ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` through
+``_bwd_call``; the ``_flash`` custom vjp). The kernels are
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``. The public
+layout stays ``[b, s, h, d]``, GQA is native (k/v carry ``hkv`` heads with
+``hq % hkv == 0``), and the forward's outputs are O and the float32
+log-sum-exp ``[b, hq, s]``. The additive mask, ``kv_seqlens`` and dropout
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,11 +24,16 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 _BLOCK_Q = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
 _SIGNATURES = {"flash_attention_fwd": [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-    ctypes.c_void_p]}
+    _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]}
+_BWD_SIGNATURES = {
+    "flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, ctypes.c_float, _I, _P],
+    "flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, ctypes.c_float, _I, _P],
+}
 
 
 def _check_shapes(q, k, v):
@@ -47,21 +54,53 @@ def _check_shapes(q, k, v):
         raise ValueError(f"GQA needs hq % hkv == 0, got {hq}/{hkv}")
 
 
+def _check_card(what, q, k, v, *more):
+    """Raise unless the kernels can take these tensors; returns nothing."""
+    b, s, hq, d = q.shape
+    tensors = (q, k, v) + more
+    if q.device.type != "cuda" or any(t.device != q.device
+                                      for t in tensors):
+        raise ValueError(f"{what}: tensors must be on one CUDA device (got "
+                         f"{[str(t.device) for t in tensors]})")
+    if q.dtype not in _DTYPE_CODES or not (k.dtype == v.dtype == q.dtype):
+        raise TypeError(f"{what}: kernel takes float32 or bfloat16 of one "
+                        f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {d} not in {HEAD_DIMS}")
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: inputs must be contiguous with "
+                             "16-byte aligned data")
+    if -(-s // _BLOCK_Q) > 65535:
+        raise ValueError(f"{what}: sequence length {s} too long")
+    if not on_hopper(q.device):
+        raise RuntimeError(f"{what}: the kernel is built for Hopper "
+                           "(sm_90a) only")
+
+
+def _dense(q, k, v, causal):
+    """The kernels' scores in float32, dense: ``(scores [b, hq, s, s],
+    q * (1/sqrt(d)), k, v)``, the last three head-major ``[b, hq, s, d]``
+    with k and v repeated over each GQA group, and the scores masked with
+    -1e30 where ``causal`` hides a key."""
+    s, hq, d = q.shape[1:]
+    group = hq // k.shape[2]
+    qf = q.float().transpose(1, 2) * (1.0 / math.sqrt(d))
+    kf, vf = (t.float().transpose(1, 2).repeat_interleave(group, dim=1)
+              for t in (k, v))
+    scores = qf @ kf.transpose(-1, -2)
+    if causal:
+        hidden = torch.ones(s, s, dtype=torch.bool, device=q.device).triu(1)
+        scores = scores.masked_fill(hidden, NEG_INF)
+    return scores, qf, kf, vf
+
+
 def flash_attention_plain(q, k, v, causal: bool = True):
     """Dense attention in float32 with the kernel's semantics: scores from
     q * (1/sqrt(d)), masked with -1e30, O = softmax . V cast to q's type,
     LSE = m + log(max(l, 1e-20)) as float32 ``[b, hq, s]``."""
     _check_shapes(q, k, v)
-    b, s, hq, d = q.shape
-    group = hq // k.shape[2]
-    scale = 1.0 / math.sqrt(d)
-    qf = q.float().transpose(1, 2) * scale                # [b, hq, s, d]
-    kf = k.float().transpose(1, 2).repeat_interleave(group, dim=1)
-    vf = v.float().transpose(1, 2).repeat_interleave(group, dim=1)
-    scores = qf @ kf.transpose(-1, -2)
-    if causal:
-        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-        scores = scores.masked_fill(~keep, NEG_INF)
+    scores, _, _, vf = _dense(q, k, v, causal)
     m = scores.amax(-1, keepdim=True)
     p = torch.exp(scores - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-20)
@@ -72,7 +111,9 @@ def flash_attention_plain(q, k, v, causal: bool = True):
 
 def flash_attention(q, k, v, causal: bool = True):
     """Blockwise flash attention forward: ``(out [b, s, hq, d],
-    lse [b, hq, s] float32)``.
+    lse [b, hq, s] float32)``, with no autograd history
+    (``nn.functional.scaled_dot_product_attention`` wraps this in
+    :class:`FlashAttentionFunction`).
 
     A CPU tensor takes :func:`flash_attention_plain`. A CUDA tensor
     launches the kernel on the current stream or raises: float32 or
@@ -82,25 +123,8 @@ def flash_attention(q, k, v, causal: bool = True):
     _check_shapes(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
+    _check_card("flash_attention", q, k, v)
     b, s, hq, d = q.shape
-    hkv = k.shape[2]
-    if q.device.type != "cuda" or not (k.device == v.device == q.device):
-        raise ValueError("flash_attention: q, k, v must be on one CUDA "
-                         f"device (got {q.device}, {k.device}, {v.device})")
-    if q.dtype not in _DTYPE_CODES or not (k.dtype == v.dtype == q.dtype):
-        raise TypeError("flash_attention: kernel takes float32 or bfloat16 "
-                        f"of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be contiguous "
-                             "with 16-byte aligned data")
-    if -(-s // _BLOCK_Q) > 65535:
-        raise ValueError(f"flash_attention: sequence length {s} too long")
-    if not on_hopper(q.device):
-        raise RuntimeError("flash_attention: the kernel is built for Hopper "
-                           "(sm_90a) only")
     out = torch.empty_like(q)
     lse = torch.empty(b, hq, s, dtype=torch.float32, device=q.device)
     if b == 0 or s == 0:
@@ -108,7 +132,7 @@ def flash_attention(q, k, v, causal: bool = True):
     lib = _build.load("flash_attention", _SIGNATURES)
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, s, hq, hkv, d, int(causal),
+        lse.data_ptr(), b, s, hq, k.shape[2], d, int(causal),
         1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "flash_attention_fwd")
@@ -117,3 +141,128 @@ def flash_attention(q, k, v, causal: bool = True):
 
 
 flash_attention.launches = 0
+
+
+def _delta(out, dout):
+    """delta = rowsum(dO * O) in float32, ``[b, hq, s]`` (the JAX package
+    computes it in XLA outside the kernels, ``_bwd_call``)."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, causal: bool = True):
+    """The backward kernels' math, dense in float32: P = exp(S - lse) from
+    the forward's LSE, dS = P (dO V^T - rowsum(dO O)), dQ = dS K scale,
+    dK = dS^T Q scale and dV = P^T dO summed over each GQA group. Returns
+    ``(dq, dk, dv)`` in q's and k's types."""
+    _check_shapes(q, k, v)
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    group = hq // hkv
+    scores, qf, kf, vf = _dense(q, k, v, causal)
+    # masked scores are -1e30, so their probabilities come out exactly 0
+    p = torch.exp(scores - lse.unsqueeze(-1))
+    dof = dout.float().transpose(1, 2)
+    dp = dof @ vf.transpose(-1, -2)
+    ds = p * (dp - _delta(out, dout).unsqueeze(-1))
+    scale = 1.0 / math.sqrt(d)
+    dq = (ds @ kf) * scale
+    dk = ds.transpose(-1, -2) @ qf           # qf carries the scale
+    dv = p.transpose(-1, -2) @ dof
+
+    def per_kv_head(x):                      # [b, hq, s, d] -> [b, s, hkv, d]
+        return x.reshape(b, hkv, group, s, d).sum(2).transpose(1, 2)
+
+    return (dq.transpose(1, 2).to(q.dtype).contiguous(),
+            per_kv_head(dk).to(k.dtype).contiguous(),
+            per_kv_head(dv).to(v.dtype).contiguous())
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True):
+    """Launch the dQ kernel (CUDA tensors only; see
+    :func:`flash_attention_bwd`). Returns dq in q's type."""
+    _check_card("flash_attention_bwd_dq", q, k, v, dout, lse, delta)
+    b, s, hq, d = q.shape
+    dq = torch.empty_like(q)
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    err = lib.flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, hq,
+        k.shape[2], d, int(causal), 1.0 / math.sqrt(d),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True):
+    """Launch the dK/dV kernel (CUDA tensors only; see
+    :func:`flash_attention_bwd`). Returns ``(dk, dv)`` in k's type, already
+    summed over each GQA group."""
+    _check_card("flash_attention_bwd_dkv", q, k, v, dout, lse, delta)
+    b, s, hq, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    err = lib.flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+        s, hq, k.shape[2], d, int(causal), 1.0 / math.sqrt(d),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, causal: bool = True):
+    """Flash attention backward: ``(dq, dk, dv)`` from the forward's inputs,
+    its output and LSE, and the output gradient ``dout`` (q's type and
+    shape, contiguous on the card).
+
+    A CPU tensor takes :func:`flash_attention_bwd_plain`. A CUDA tensor
+    computes delta = rowsum(dO * O) with PyTorch ops, then launches the dQ
+    and the dK/dV kernels on the current stream, or raises.
+    """
+    _check_shapes(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape or \
+            lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
+        raise ValueError("flash_attention_bwd: out and dout [b, s, hq, d] "
+                         "and lse [b, hq, s] expected, got "
+                         f"{tuple(out.shape)}, {tuple(dout.shape)}, "
+                         f"{tuple(lse.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, lse, causal)
+    if dout.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError("flash_attention_bwd: dout of q's type and float32 "
+                        f"lse expected, got {dout.dtype}, {lse.dtype}")
+    if q.shape[0] == 0 or q.shape[1] == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    delta = _delta(out, dout)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Flash attention with its backward kernels: saves ``(q, k, v, out,
+    lse)``, the residuals of the JAX package's ``_flash_fwd``. Returns
+    ``(out, lse)``; lse is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         lse, ctx.causal)
+        return dq, dk, dv, None
