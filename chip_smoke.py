@@ -10,15 +10,20 @@ Phases, each printing JSON lines (any failure exits non-zero):
    (one process per source, all started together).
 2. kernels: each kernel against its plain PyTorch version on the card,
    case by case with the tolerance stated (and, for the backward and AdamW
-   kernels, two launches bit for bit), then timed at the serving and
-   training paths' shapes beside its plain version, one PyTorch library
-   call, and the card's bound for the same work.
+   kernels, two launches bit for bit), the flash kernels also under
+   additive masks and the block-sparse kernel over random, BigBird, empty
+   and full tile rows, then timed at the serving and training paths'
+   shapes (and the masked flash kernels at the packed-document training
+   shape) beside its plain version, one PyTorch library call, and the
+   card's bound for the same work.
 3. width: Llama-2-7B width (bf16, 2 layers, random weights from --seed),
    one 128-token prompt, prefill on the card (kernels) against the same
    weights in float32 on the CPU (plain versions).
 3b. train_width: the same width, loss and every parameter's grad of one
    1 x 128-token batch, on the card (bf16 O2, kernels) against the CPU
    (float32, plain versions).
+3c. train_width_masked: the same check with a packed-document mask (the
+   masked flash kernels).
 4. serve: Llama-2-7B (bf16, all 32 layers) serves 4
    requests of 512 prompt tokens and 32 greedy new tokens through
    LlamaForCausalLM.generate; the launch counts prove the path ran the
@@ -29,6 +34,16 @@ Phases, each printing JSON lines (any failure exits non-zero):
    the launch counts of one step prove the path ran every kernel. Step
    time, tokens/s, MFU, peak memory, the device's idle share, the top
    kernels of one profiled step and every loss are reported.
+5b. train_packed: the same path trains 3 steps on packed documents under a
+   float32 [4, 1, 2048, 2048] block-diagonal causal mask (document lengths
+   drawn from --seed); the launch counts of one step prove the masked
+   flash kernels ran. The same reports as train.
+6. sparse: F.sparse_attention at BERT-base width (12 heads x 64) and
+   BigBird-base length (4096 tokens; 2 global, 3 window and 3 random
+   128-token tiles) from an int32 CSR built from --seed: one block-sparse
+   launch per call, the output and the q/k/v grads against the plain
+   version, the call's host (CSR probe) and device time; then a pattern
+   that is not tile-aligned takes the dense route with no launch.
 
 The last two lines are the {"kernels": [...]} summary and the result
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -37,12 +52,14 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, H100 SXM data sheet
@@ -118,6 +135,44 @@ def bound(nbytes, flops, peak_flops):
     t_ops = flops / peak_flops * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations")
+
+
+def bigbird_tiles(nb, seed):
+    """BigBird-base's pattern (google/bigbird-roberta-base: 2 global, 3
+    window and 3 random blocks) at 128-token tiles: tile rows 0 and nb - 1
+    attend everywhere, the others to tile columns 0 and nb - 1, their
+    window of 3 and 3 random other tiles drawn from `seed`."""
+    rng = np.random.RandomState(seed)
+    bm = np.zeros((nb, nb), bool)
+    bm[[0, -1], :] = True
+    bm[:, [0, -1]] = True
+    for r in range(1, nb - 1):
+        bm[r, r - 1:r + 2] = True
+        bm[r, rng.choice(np.flatnonzero(~bm[r]), 3, replace=False)] = True
+    return bm
+
+
+def packed_doc_mask(batch, seq, lo, hi, seed, device="cuda"):
+    """Packed documents: each row is filled with documents whose lengths are
+    uniform in [lo, hi] (the last one cut to fit), and the float32 additive
+    mask [batch, 1, seq, seq] is 0 where a token may attend (same document,
+    not later) and -1e9 elsewhere. Returns (mask, lengths per row)."""
+    rng = np.random.RandomState(seed)
+    doc = np.zeros((batch, seq), np.int64)
+    lengths = []
+    for r in range(batch):
+        row, start = [], 0
+        while start < seq:
+            n = min(int(rng.randint(lo, hi + 1)), seq - start)
+            doc[r, start:start + n] = len(row)
+            row.append(n)
+            start += n
+        lengths.append(row)
+    ids = torch.from_numpy(doc).to(device)
+    keep = (ids[:, :, None] == ids[:, None, :]) & torch.ones(
+        seq, seq, dtype=torch.bool, device=device).tril()
+    mask = torch.zeros(batch, 1, seq, seq, device=device)
+    return mask.masked_fill_(~keep[:, None], -1e9), lengths
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -371,7 +426,11 @@ def phase_kernels(seed):
     records = [flash, rms] + train_kernels(gen)
     for rec in records:
         emit({"phase": "kernels", "timing": rec})
-    return records
+    masked = masked_flash_kernels(gen, seed)
+    for rec in records:
+        if rec["name"] in masked:
+            rec["masked"] = masked[rec["name"]]
+    return records + [block_sparse_kernels(gen, seed)]
 
 
 def train_kernels(gen):
@@ -502,6 +561,236 @@ def train_kernels(gen):
     return records
 
 
+def masked_flash_case(gen, dtype, mask_dtype, causal, hq, hkv, s, d,
+                      mask_heads, b=2):
+    """The forward and both backward kernels under an additive mask
+    [b, mask_heads, s, s] (30% of it -1e9, the rest unit normal, and one
+    row hidden entirely, which comes out uniform) against the plain
+    versions; the backward twice, bit for bit."""
+    from paddle_tpu_torch.ops.hopper import (flash_attention,
+                                             flash_attention_bwd,
+                                             flash_attention_bwd_plain,
+                                             flash_attention_plain)
+    q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    dout = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
+    shape = (b, mask_heads, s, s)
+    mask = torch.where(
+        torch.rand(*shape, generator=gen, device="cuda") < 0.3, -1e9,
+        torch.randn(*shape, generator=gen, device="cuda")).to(mask_dtype)
+    mask[0, :, s // 3, :] = -1e9
+    out, lse = flash_attention(q, k, v, causal, mask)
+    ref, ref_lse = flash_attention_plain(q, k, v, causal, mask)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, causal, mask)
+    again = flash_attention_bwd(q, k, v, out, dout, lse, causal, mask)
+    ref_g = flash_attention_bwd_plain(q, k, v, out, dout, lse, causal, mask)
+    torch.cuda.synchronize()
+    rec = {"kernel": "flash_attention_masked", "dtype": str(dtype)[6:],
+           "mask": [list(shape), str(mask_dtype)[6:]], "causal": causal,
+           "heads": [hq, hkv], "s": s, "d": d,
+           "max_abs_err": max_err(out, ref), "tol": tolerance(ref, dtype),
+           "lse_max_abs_err": max_err(lse, ref_lse),
+           "lse_tol": tolerance(ref_lse, torch.float32),
+           "bit_identical": all(torch.equal(a, c)
+                                for a, c in zip(got, again))}
+    ok = rec["bit_identical"] and rec["max_abs_err"] <= rec["tol"] and \
+        rec["lse_max_abs_err"] <= rec["lse_tol"]
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref_g):
+        rec[f"{name}_max_abs_err"] = max_err(a, r)
+        rec[f"{name}_tol"] = bwd_tolerance(r, dtype)
+        ok = ok and rec[f"{name}_max_abs_err"] <= rec[f"{name}_tol"]
+    emit(rec)
+    if not ok:
+        fail(f"masked flash attention disagrees with its plain version: "
+             f"{rec}")
+
+
+def masked_flash_kernels(gen, seed):
+    """The flash kernels with the additive mask: every case, then the three
+    kernels timed at the training shape under the packed-document mask.
+    Returns {kernel name: timing record}."""
+    from paddle_tpu_torch.ops.hopper import (flash_attention,
+                                             flash_attention_bwd,
+                                             flash_attention_bwd_dkv,
+                                             flash_attention_bwd_dq,
+                                             flash_attention_bwd_plain,
+                                             flash_attention_plain)
+    from paddle_tpu_torch.ops.hopper.flash_attention import _delta
+    F = torch.nn.functional
+    bf16, f32 = torch.bfloat16, torch.float32
+    for dtype in (bf16, f32):
+        for causal in (False, True):
+            for hq, hkv in ((32, 32), (32, 8)):
+                for s, d in ((2048, 128), (300, 64)):
+                    for mask_heads in (1, hq):
+                        masked_flash_case(gen, dtype, f32, causal, hq, hkv, s,
+                                          d, mask_heads,
+                                          b=1 if s == 2048 else 2)
+    for s, d in ((2048, 128), (300, 64)):       # a mask of q's type
+        masked_flash_case(gen, bf16, bf16, False, 32, 8, s, d, 1,
+                          b=1 if s == 2048 else 2)
+
+    # the packed-document training shape: q, k, v [4, 2048, 32, 128] bf16,
+    # non-causal under a float32 [4, 1, 2048, 2048] mask
+    b, s, h, d = 4, 2048, 32, 128
+    mask, _ = packed_doc_mask(b, s, 256, 1024, seed + 4)
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=gen,
+                                 device="cuda").to(bf16) for _ in range(4))
+    out, lse = flash_attention(q, k, v, False, mask)
+    ref, _ = flash_attention_plain(q, k, v, False, mask)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, False, mask)
+    ref_g = flash_attention_bwd_plain(q, k, v, out, dout, lse, False, mask)
+    torch.cuda.synchronize()
+    errs = {"flash_attention": max_err(out, ref),
+            "flash_attention_bwd_dq": max_err(got[0], ref_g[0]),
+            "flash_attention_bwd_dkv": max(max_err(got[1], ref_g[1]),
+                                           max_err(got[2], ref_g[2]))}
+    tols = {"flash_attention": tolerance(ref, bf16),
+            "flash_attention_bwd_dq": bwd_tolerance(ref_g[0], bf16),
+            "flash_attention_bwd_dkv": max(bwd_tolerance(ref_g[1], bf16),
+                                           bwd_tolerance(ref_g[2], bf16))}
+    if any(errs[n] > tols[n] for n in errs):
+        fail(f"masked flash at the training shape: {errs} against {tols}")
+    del ref, got, ref_g
+    delta = _delta(out, dout)
+    gemm = 2 * b * h * d * s * s            # one non-causal product
+    io = q.numel() * q.element_size()
+    rows = 2 * b * h * s * 4                # lse and delta
+    mask_bytes = mask.numel() * mask.element_size()
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_mask = mask.to(bf16)                # SDPA takes a mask of q's type
+    fwd_lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=lib_mask))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask)
+    dot = dout.transpose(1, 2)
+    bwd_lib = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True))
+    del lib_out, qt, kt, vt, dot, lib_mask
+    bwd_plain = time_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, out, dout, lse, False, mask), 5)
+    shape = ("q,k,v [4, 2048, 32, 128] bf16, non-causal, float32 "
+             "packed-document mask [4, 1, 2048, 2048]")
+    records = {}
+    # each kernel with the mask, then without it at the same shape (the
+    # mask's own cost; the unmasked lse is as good as any for timing)
+    for name, fn, nbytes, flops, plain_ms, lib_ms in (
+            ("flash_attention",
+             lambda m: flash_attention(q, k, v, False, m),
+             4 * io + b * h * s * 4 + mask_bytes, 2 * gemm,
+             time_ms(lambda: flash_attention_plain(q, k, v, False, mask), 5),
+             fwd_lib),
+            ("flash_attention_bwd_dq",
+             lambda m: flash_attention_bwd_dq(q, k, v, dout, lse, delta,
+                                              False, m),
+             5 * io + rows + mask_bytes, 3 * gemm, bwd_plain, bwd_lib),
+            ("flash_attention_bwd_dkv",
+             lambda m: flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                               False, m),
+             6 * io + rows + mask_bytes, 4 * gemm, bwd_plain, bwd_lib)):
+        b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
+        records[name] = {"shape": shape, "max_abs_err": errs[name],
+                         "tol": tols[name], "ms": time_ms(lambda: fn(mask)),
+                         "unmasked_noncausal_ms": time_ms(lambda: fn(None)),
+                         "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": lib_ms}
+        emit({"phase": "kernels", "timing_masked": dict(name=name,
+                                                        **records[name])})
+    del q, k, v, dout, out, lse, delta, mask
+    torch.cuda.empty_cache()
+    return records
+
+
+def block_sparse_case(gen, dtype, s, d, bm, b=2, h=3):
+    """The block-sparse kernel against its plain version on q, k, v
+    [b, s, h, d] and on transposed [b, h, s, d] tensors read in place."""
+    from paddle_tpu_torch.ops.hopper import (block_sparse_attention_fwd,
+                                             block_sparse_attention_plain)
+    errs, tols, rows_zero = [], [], True
+    for layout in ("bshd", "bhsd"):
+        shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
+        q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        if layout == "bhsd":
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        out = block_sparse_attention_fwd(q, k, v, bm)
+        ref = block_sparse_attention_plain(q, k, v, bm)
+        torch.cuda.synchronize()
+        errs.append(max_err(out, ref))
+        tols.append(tolerance(ref, dtype))
+        empty = torch.from_numpy(np.repeat(~bm.any(axis=1), 128)).cuda()
+        rows_zero = rows_zero and bool((out[:, empty] == 0).all())
+    rec = {"kernel": "block_sparse_attention", "dtype": str(dtype)[6:],
+           "s": s, "d": d, "active_tiles": int(bm.sum()),
+           "empty_rows": int((~bm.any(axis=1)).sum()),
+           "full_rows": int(bm.all(axis=1).sum()), "max_abs_err": errs,
+           "tol": tols, "empty_rows_exactly_zero": rows_zero}
+    emit(rec)
+    if not rows_zero or any(e > t for e, t in zip(errs, tols)):
+        fail(f"block_sparse_attention disagrees with its plain version: "
+             f"{rec}")
+    return max(errs)
+
+
+def block_sparse_kernels(gen, seed):
+    """The block-sparse kernel: every case, then its timing record at
+    q, k, v [4, 4096, 12, 64] bf16 under the BigBird pattern."""
+    from paddle_tpu_torch.ops.hopper import (block_sparse_attention_fwd,
+                                             block_sparse_attention_plain)
+    F = torch.nn.functional
+    rng = np.random.RandomState(seed + 5)
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (128, 64, 32):
+            for s in (4096, 512, 256):
+                nb = s // 128
+                bm = rng.rand(nb, nb) < 0.4
+                bm[0] = False                      # an empty tile row
+                bm[-1] = True                      # a row with every tile
+                block_sparse_case(gen, dtype, s, d, bm, b=1 if s == 4096
+                                  else 2)
+            block_sparse_case(gen, dtype, 4096, d, bigbird_tiles(32, seed),
+                              b=1)
+
+    b, s, h, d = 4, 4096, 12, 64
+    bm = bigbird_tiles(s // 128, seed)
+    q, k, v = (torch.randn(b, s, h, d, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    out = block_sparse_attention_fwd(q, k, v, bm)
+    ref = block_sparse_attention_plain(q, k, v, bm)
+    torch.cuda.synchronize()
+    err, tol = max_err(out, ref), tolerance(ref, torch.bfloat16)
+    if err > tol:
+        fail(f"block_sparse_attention at the timing shape: {err} > {tol}")
+    del out, ref
+    io = q.numel() * q.element_size()
+    active = int(bm.sum())
+    b_ms, b_by = bound(4 * io + bm.size * 4,
+                       4 * 128 * 128 * d * active * b * h, H100_BF16_FLOPS)
+    elem = torch.from_numpy(np.repeat(np.repeat(bm, 128, 0), 128, 1)).cuda()
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rec = {"name": "block_sparse_attention", "route": "cuda",
+           "source": "paddle_tpu_torch/ops/hopper/csrc/"
+                     "block_sparse_attention.cu",
+           "replaces": "paddle_tpu/ops/pallas/block_sparse_attention.py:31",
+           "shape": f"q,k,v [4, 4096, 12, 64] bf16, BigBird pattern, "
+                    f"{active} of {bm.size} tiles",
+           "max_abs_err": err, "tol": tol,
+           "ms": time_ms(lambda: block_sparse_attention_fwd(q, k, v, bm)),
+           "plain_ms": time_ms(lambda: block_sparse_attention_plain(
+               q, k, v, bm), 5),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=elem)),
+           "library_note": "F.scaled_dot_product_attention with the expanded "
+                           "bool mask [4096, 4096]"}
+    emit({"phase": "kernels", "timing": rec})
+    del q, k, v, qt, kt, vt, elem
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -- phase 3 -----------------------------------------------------------------
 
 def phase_width(seed):
@@ -547,10 +836,12 @@ def phase_width(seed):
 
 # -- phase 3b ----------------------------------------------------------------
 
-def phase_train_width(seed):
+def phase_train_width(seed, masked=False):
     """Loss and every parameter's grad of two layers at full width: card
     (bf16 O2, kernels) against CPU (float32, plain versions) from the same
-    float32 weights, on one 1 x 128-token batch. Tolerance: loss within
+    float32 weights, on one 1 x 128-token batch; with `masked`, under a
+    float32 packed-document mask (documents of 16-64 tokens) instead of
+    the causal one. Tolerance: loss within
     1e-3 relative; each grad within 6% in norm, ||g_card - g_cpu|| /
     ||g_cpu||. A bf16 backward rounds every activation and grad to 8 bits
     (2^-9 relative each) on its way through two layers; a CPU run at half
@@ -569,10 +860,13 @@ def phase_train_width(seed):
     gen = torch.Generator().manual_seed(seed + 2)
     ids = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen)
     labels = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen)
-    _, loss = card(ids.cuda(), labels=labels.cuda())
+    mask, docs = (packed_doc_mask(1, 128, 16, 64, seed + 6) if masked
+                  else (None, None))
+    _, loss = card(ids.cuda(), labels=labels.cuda(), attn_mask=mask)
     loss.backward()
     torch.cuda.synchronize()
-    _, ref_loss = ref(ids, labels=labels)
+    _, ref_loss = ref(ids, labels=labels,
+                      attn_mask=None if mask is None else mask.cpu())
     ref_loss.backward()
     rel, bad = {}, []
     for (name, p), (_, r) in zip(card.named_parameters(),
@@ -582,7 +876,8 @@ def phase_train_width(seed):
             continue
         rel[name] = float((p.grad.float().cpu() - r.grad).norm()
                           / r.grad.norm())
-    rec = {"phase": "train_width", "layers": 2, "tokens": 128,
+    rec = {"phase": "train_width_masked" if masked else "train_width",
+           "layers": 2, "tokens": 128, "documents": docs,
            "loss": float(loss), "ref_loss": float(ref_loss),
            "loss_rel_err": abs(float(loss) - float(ref_loss))
            / abs(float(ref_loss)), "loss_tol_rel": 1e-3,
@@ -690,16 +985,19 @@ def profile_one(fn):
 
 # -- phase 5 -----------------------------------------------------------------
 
-def phase_train(seed):
+def phase_train(seed, packed=False):
     """bench.py's training path at Llama-2-7B width, 8 of 32 layers (AdamW
-    O2 keeps 16 bytes a parameter: 32 layers would need ~108 GB)."""
+    O2 keeps 16 bytes a parameter: 32 layers would need ~108 GB): 5 steps;
+    with `packed`, 3 steps on packed documents under a float32
+    [4, 1, 2048, 2048] block-diagonal causal mask, documents of 256-1024
+    tokens drawn from the seed."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b_config
     from paddle_tpu_torch.ops.hopper import launch_counts, \
         reset_launch_counts
     from paddle_tpu_torch.optimizer import AdamW
-    layers, batch, seq, steps = 8, 4, 2048, 5
+    layers, batch, seq, steps = 8, 4, 2048, 3 if packed else 5
     cfg = llama2_7b_config(num_hidden_layers=layers, use_recompute=True)
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device="cuda",
@@ -710,8 +1008,8 @@ def phase_train(seed):
     model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
     n_params = sum(p.numel() for p in model.parameters())
 
-    def loss_fn(ids, labels):
-        _, loss = model(ids, labels=labels)
+    def loss_fn(ids, labels, mask):
+        _, loss = model(ids, labels=labels, attn_mask=mask)
         return loss
 
     step = TrainStep(loss_fn, opt)
@@ -720,6 +1018,8 @@ def phase_train(seed):
                         device="cuda")
     labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                            device="cuda")
+    mask, docs = (packed_doc_mask(batch, seq, 256, 1024, seed + 7) if packed
+                  else (None, None))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -729,27 +1029,28 @@ def phase_train(seed):
             reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses.append(step(ids, labels))
+        losses.append(step(ids, labels, mask))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         if i == 1:
             launches = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(x) for x in losses]
-    profile = profile_one(lambda: step(ids, labels))
+    profile = profile_one(lambda: step(ids, labels, mask))
 
     expect = {"flash_attention": 2 * layers,
               "flash_attention_bwd_dq": layers,
               "flash_attention_bwd_dkv": layers,
               "rms_norm": 4 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
-              "adamw": 9 * layers + 3}
+              "adamw": 9 * layers + 3, "block_sparse_attention": 0}
     median_ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
     tokens_per_s = batch * seq / (median_ms / 1e3)
     # bench.py's model FLOPs: 6 P per token plus the attention terms
     flops_per_token = 6 * n_params + 12 * layers * cfg.hidden_size * seq
     idle = ("not measured" if profile["device_ms"] == "not measured"
             else 1 - profile["device_ms"] / median_ms)
-    emit({"phase": "train", "layers": layers, "batch": batch, "seq": seq,
+    emit({"phase": "train_packed" if packed else "train", "layers": layers,
+          "batch": batch, "seq": seq, "documents": docs,
           "params": n_params, "init_s": init_s, "step_ms": step_ms,
           "median_step_ms": median_ms, "tokens_per_s": tokens_per_s,
           "mfu": tokens_per_s * flops_per_token / H100_BF16_FLOPS,
@@ -761,6 +1062,143 @@ def phase_train(seed):
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         fail(f"train losses not finite and falling: {losses}")
+    return launches
+
+
+# -- phase 6 -----------------------------------------------------------------
+
+def csr_from_tiles(bm, heads, block=128):
+    """The int32 CSR (offsets [1, heads, s + 1], columns [1, heads, nnz]) of
+    a tile pattern, one pattern for every head, columns ascending."""
+    row_cols = [np.concatenate([np.arange(c * block, (c + 1) * block)
+                                for c in np.flatnonzero(r)]) for r in bm]
+    cols = np.concatenate([np.tile(rc, block) for rc in row_cols])
+    counts = np.repeat([len(rc) for rc in row_cols], block)
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    return tuple(np.ascontiguousarray(np.broadcast_to(
+        a.astype(np.int32), (1, heads, a.size))) for a in (offs, cols))
+
+
+def csr_window(s, heads, width):
+    """The int32 CSR of an element-level window: row r attends to columns
+    [r - width / 2, r + width / 2), cut at 0 and s."""
+    r = np.arange(s)
+    lo, hi = np.maximum(r - width // 2, 0), np.minimum(r + width // 2, s)
+    counts = hi - lo
+    first = np.cumsum(counts) - counts
+    cols = np.repeat(lo - first, counts) + np.arange(counts.sum())
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    return tuple(np.ascontiguousarray(np.broadcast_to(
+        a.astype(np.int32), (1, heads, a.size))) for a in (offs, cols))
+
+
+def phase_sparse(seed):
+    """F.sparse_attention at BERT-base width (bert_base_config: 12 heads x
+    64) and BigBird-base length (4096 tokens) in bf16, from an int32 CSR of
+    the BigBird tile pattern, one pattern for every head. Tolerances: the
+    output as the kernel cases (one bf16 ulp at the largest magnitude of
+    the float32 plain version); the q/k/v grads of one backward (the dense
+    masked recompute) as the backward kernels' against autograd through the
+    plain version."""
+    from paddle_tpu_torch.nn import functional_extras as FE
+    from paddle_tpu_torch.ops.hopper import (block_sparse_attention_fwd,
+                                             block_sparse_attention_plain,
+                                             launch_counts,
+                                             reset_launch_counts)
+    b, h, s, d = 1, 12, 4096, 64
+    bm = bigbird_tiles(s // 128, seed)
+    t0 = time.perf_counter()
+    offs, cols = csr_from_tiles(bm, h)
+    csr_build_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    q, k, v, g = (torch.randn(b, h, s, d, generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = FE.sparse_attention(*leaves, offs, cols)
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    launches = launch_counts()
+    out.backward(g)
+    torch.cuda.synchronize()
+    expect = {name: 0 for name in launches}
+    expect["block_sparse_attention"] = 1
+    if launches != expect:
+        fail(f"sparse launch counts {launches}, expected {expect}")
+
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = block_sparse_attention_plain(
+        *(t.transpose(1, 2) for t in ref_leaves), bm).transpose(1, 2)
+    ref.backward(g.float())
+    rec = {"phase": "sparse", "shape": [b, h, s, d], "dtype": "bfloat16",
+           "active_tiles": int(bm.sum()), "tiles": int(bm.size),
+           "csr_bytes": offs.nbytes + cols.nbytes, "csr_build_s": csr_build_s,
+           "launches": launches, "first_call_s": first_call_s,
+           "out_finite": bool(torch.isfinite(out).all()),
+           "max_abs_err": max_err(out, ref),
+           "tol": tolerance(ref, torch.bfloat16)}
+    ok = rec["out_finite"] and rec["max_abs_err"] <= rec["tol"]
+    for name, a, r in zip(("dq", "dk", "dv"), leaves, ref_leaves):
+        rec[f"{name}_max_abs_err"] = max_err(a.grad, r.grad)
+        rec[f"{name}_tol"] = bwd_tolerance(r.grad, torch.bfloat16)
+        ok = ok and rec[f"{name}_max_abs_err"] <= rec[f"{name}_tol"]
+    del ref, ref_leaves, leaves, out
+
+    # one call split: host (the CSR probe on the warm cache, its sha1
+    # digests) and device (the kernel); medians of 5
+    walls, hosts, digests = [], [], []
+    reset_launch_counts()
+    with torch.no_grad():
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            FE.sparse_attention(q, k, v, offs, cols)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            FE._csr_masks(offs, cols, s, FE.BLOCK, dense=False)
+            hosts.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            hashlib.sha1(offs.tobytes()).hexdigest()
+            hashlib.sha1(cols.tobytes()).hexdigest()
+            digests.append(time.perf_counter() - t0)
+    if launch_counts()["block_sparse_attention"] != 5:
+        fail(f"sparse: {launch_counts()} launches over 5 calls")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rec.update({
+        "call_ms": sorted(walls)[2] * 1e3,
+        "host_probe_ms": sorted(hosts)[2] * 1e3,
+        "host_sha1_ms": sorted(digests)[2] * 1e3,
+        "device_ms": time_ms(lambda: block_sparse_attention_fwd(qt, kt, vt,
+                                                                bm))})
+
+    # an element-level window of 200 is not tile-aligned: the dense route,
+    # no launch; checked against float32 dense attention under the same
+    # mask (bf16 scores and probabilities: 5% of the largest magnitude)
+    w_offs, w_cols = csr_window(s, h, 200)
+    reset_launch_counts()
+    with torch.no_grad():
+        dense = FE.sparse_attention(q, k, v, w_offs, w_cols)
+    torch.cuda.synchronize()
+    dense_launches = launch_counts()["block_sparse_attention"]
+    r = torch.arange(s, device="cuda")
+    window = (r[None, :] >= r[:, None] - 100) & (r[None, :] < r[:, None] + 100)
+    scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)
+    dense_ref = torch.softmax(scores.masked_fill(~window, -1e9), -1) @ \
+        v.float()
+    rec.update({"dense_route_launches": dense_launches,
+                "dense_route_rel_err": max_err(dense, dense_ref)
+                / float(dense_ref.abs().max())})
+    ok = ok and dense_launches == 0 and rec["dense_route_rel_err"] <= 0.05
+    emit(rec)
+    if not ok:
+        fail(f"sparse attention: {rec}")
+    del q, k, v, g, qt, kt, vt, dense, dense_ref, scores
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -793,16 +1231,25 @@ def main(argv=None):
     kernels = phase_kernels(args.seed)
     phase_width(args.seed)
     phase_train_width(args.seed)
+    phase_train_width(args.seed, masked=True)
     serve = phase_serve(args.seed)
     train = phase_train(args.seed)
+    packed = phase_train(args.seed, packed=True)
+    sparse = phase_sparse(args.seed)
     for k in kernels:
         # the forward kernels per generate (and per train step, beside);
-        # the backward and AdamW kernels per train step
-        if serve[k["name"]]:
-            k["launches"] = serve[k["name"]]
-            k["launches_per_train_step"] = train[k["name"]]
+        # the backward and AdamW kernels per train step; block-sparse per
+        # sparse_attention call
+        name = k["name"]
+        if sparse[name]:
+            k["launches"] = sparse[name]
+        elif serve[name]:
+            k["launches"] = serve[name]
+            k["launches_per_train_step"] = train[name]
         else:
-            k["launches"] = train[k["name"]]
+            k["launches"] = train[name]
+        if packed[name]:
+            k["launches_per_packed_train_step"] = packed[name]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

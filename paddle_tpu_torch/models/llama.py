@@ -8,8 +8,12 @@ kernels (forward and backward) and every norm the RMSNorm kernels when the
 model lies on the card. The one-token decode attention is plain PyTorch, as
 it was XLA code in the JAX package.
 
+Training and the full forward take an optional additive ``attn_mask``
+``[b, 1 | h, s, s]`` (float32 or the model's type), the whole attention
+spec: with a mask the attention runs non-causal, as in the JAX package.
+
 Not ported yet: MoE, context parallelism, the paged routes, beam search,
-sampling, int8 caches and attention masks. ``scan_layers`` is accepted and
+sampling and int8 caches. ``scan_layers`` is accepted and
 runs the unrolled stack (in the JAX package it is a compile-time device
 with the unrolled loop's numerics); selective recompute recomputes whole
 layers, as the JAX package's unrolled path does.
@@ -147,7 +151,7 @@ class LlamaAttention(nn.Module):
         self.v_proj = Linear(e, kv * d, **kw)
         self.o_proj = Linear(h * d, e, **kw)
 
-    def forward(self, hidden, cos, sin, return_kv=False):
+    def forward(self, hidden, cos, sin, attn_mask=None, return_kv=False):
         b, s, _ = hidden.shape
         cfg = self.config
         h, kv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -160,7 +164,14 @@ class LlamaAttention(nn.Module):
         if return_kv:
             # decode-cache layout [B, KV, S, D], post-RoPE, GQA unexpanded
             kv_out = (k.transpose(1, 2), v.transpose(1, 2))
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        if kv != h and not F.flash_eligible(q, k, attn_mask):
+            # GQA on the dense path: repeat the kv heads to the full head
+            # count (the flash kernel takes GQA natively)
+            k, v = (t.repeat_interleave(h // kv, dim=2) for t in (k, v))
+        # an explicit mask is the whole attention spec (callers bake
+        # causality into it), as in the JAX package
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                             is_causal=attn_mask is None)
         out = self.o_proj(out.reshape(b, s, h * d))
         if return_kv:
             return out, kv_out[0], kv_out[1]
@@ -193,9 +204,9 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
                                                 config.rms_norm_eps, **kw)
 
-    def forward(self, hidden, cos, sin):
+    def forward(self, hidden, cos, sin, attn_mask=None):
         hidden = hidden + self.self_attn(self.input_layernorm(hidden),
-                                         cos, sin)
+                                         cos, sin, attn_mask)
         return hidden + self.mlp(self.post_attention_layernorm(hidden))
 
     def forward_kv(self, hidden, cos, sin):
@@ -260,14 +271,14 @@ class LlamaModel(nn.Module):
             caches[i, 1, :, :, :s] = v
         return self.norm(hidden), caches
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, attn_mask=None):
         s = input_ids.shape[1]
         hidden = self.embed_tokens(input_ids)
         cos, sin = self._cos[:s], self._sin[:s]
         remat = self.config.use_recompute and self.training
         for layer in self.layers:
-            hidden = (recompute(layer, hidden, cos, sin) if remat
-                      else layer(hidden, cos, sin))
+            hidden = (recompute(layer, hidden, cos, sin, attn_mask) if remat
+                      else layer(hidden, cos, sin, attn_mask))
         return self.norm(hidden)
 
 
@@ -305,13 +316,14 @@ class LlamaForCausalLM(nn.Module):
             return F.linear(hidden, self.model.embed_tokens.weight)
         return self.lm_head(hidden)
 
-    def forward(self, input_ids, labels=None):
+    def forward(self, input_ids, labels=None, attn_mask=None):
         """Logits [B, S, V] of a full forward pass; with ``labels`` [B, S]
         also the mean cross entropy over the labels that are not -100,
         computed on float32 logits, as ``(logits, loss)``. Labels are not
         shifted: the caller aligns them with the positions, as in the JAX
-        package."""
-        logits = self._lm_logits(self.model(input_ids))
+        package. ``attn_mask`` (additive ``[B, 1 | H, S, S]``, or any mask
+        the dense path takes) replaces the causal mask."""
+        logits = self._lm_logits(self.model(input_ids, attn_mask))
         if labels is None:
             return logits
         loss = F.cross_entropy(

@@ -5,6 +5,11 @@ Counterpart of ``paddle_tpu/ops/pallas/``. Sources live in ``csrc/`` and are
 built with ``nvcc`` at first use (``_build.py``); importing this package
 builds nothing.
 """
+from .block_sparse_attention import (BlockSparseAttentionFunction,
+                                     block_sparse_attention,
+                                     block_sparse_attention_fwd,
+                                     block_sparse_attention_plain,
+                                     compress_block_mask)
 from .flash_attention import (FlashAttentionFunction, flash_attention,
                               flash_attention_bwd, flash_attention_bwd_dkv,
                               flash_attention_bwd_dq,
@@ -22,6 +27,7 @@ KERNELS = {
     "rms_norm": rms_norm,
     "rms_norm_bwd": rms_norm_bwd,
     "adamw": adamw_,
+    "block_sparse_attention": block_sparse_attention_fwd,
 }
 
 
@@ -36,8 +42,11 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["FlashAttentionFunction", "RMSNormFunction", "adamw_",
-           "adamw_plain", "flash_attention", "flash_attention_bwd",
+__all__ = ["BlockSparseAttentionFunction", "FlashAttentionFunction",
+           "RMSNormFunction", "adamw_", "adamw_plain",
+           "block_sparse_attention", "block_sparse_attention_fwd",
+           "block_sparse_attention_plain", "compress_block_mask",
+           "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_bwd_plain", "flash_attention_plain", "rms_norm",
            "rms_norm_bwd", "rms_norm_bwd_plain", "rms_norm_plain", "KERNELS",

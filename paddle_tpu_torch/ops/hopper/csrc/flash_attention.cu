@@ -2,9 +2,9 @@
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_fwd_kernel (launched
 // by _fwd_call through flash_attention_pallas): blockwise attention with an
-// online softmax in float32, native GQA, causal or not, writing O in the
-// input type and the float32 log-sum-exp per row. The TPU kernel's additive
-// mask, kv_seqlens and dropout are not ported yet.
+// online softmax in float32, native GQA, causal or not, an optional additive
+// mask, writing O in the input type and the float32 log-sum-exp per row. The
+// TPU kernel's kv_seqlens and dropout are not ported yet.
 //
 // Bound on this card: at the prefill shape (s = 512, d = 128, causal) the
 // product does about s / 4 flops per byte of Q, K, V and O, below the ~295
@@ -31,6 +31,12 @@
 //     are never written. Masked scores are -1e30 and their probabilities
 //     are forced to 0, so a fully masked tile cannot produce NaN.
 //   * GQA is index arithmetic: q-head h reads kv-head h / (hq / hkv).
+//   * The additive mask [batch, 1 | hq, s, s] (float32 or the inputs'
+//     type, a template argument, so the unmasked build is unchanged) is
+//     added to the scaled scores before the causal mask, as _tile_scores
+//     does. Each thread reads its 4 x 4 scores' elements straight from
+//     global memory (L2) into registers: no shared buffer, and a half-warp
+//     reads 16 consecutive floats of one mask row.
 #include "flash_common.cuh"
 
 namespace {
@@ -45,12 +51,12 @@ struct Smem {
   static constexpr int kBytes = kFloats * static_cast<int>(sizeof(float));
 };
 
-template <typename T, int D>
+template <typename T, int D, int kMask>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int s, int hq, int hkv, bool causal,
-                 float scale) {
+                 const T* __restrict__ v, const void* __restrict__ mask,
+                 T* __restrict__ o, float* __restrict__ lse, int s, int hq,
+                 int hkv, int mask_heads, bool causal, float scale) {
   using L = Smem<D>;
   constexpr int kCols = D / 16;      // output columns per thread
   constexpr int kChunks = kCols / 4; // float4 chunks of them
@@ -125,6 +131,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           a = fmaf(qv[i].w, kv[j].w, a);
           sc[i][j] = a;
         }
+    }
+
+    if constexpr (kMask != kNoMask) {
+      const void* plane = mask_plane<kMask>(mask, b, h, mask_heads, s);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + ty * 4 + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = k0 + tx + 16 * j;
+          if (row < s && col < s)
+            sc[i][j] += mask_at<kMask>(plane, s, row, col);
+        }
+      }
     }
 
     // online softmax over this tile's columns, per row
@@ -215,22 +235,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int batch, int s, int hq, int hkv, bool causal, float scale,
-           cudaStream_t stream) {
+template <typename T, int D, int kMask>
+int launch(const void* q, const void* k, const void* v, const void* mask,
+           void* o, void* lse, int batch, int s, int hq, int hkv,
+           int mask_heads, bool causal, float scale, cudaStream_t stream) {
   using L = Smem<D>;
   // above the 48 KB default, so opt in (a cheap host call, made per launch
   // so that it holds on whichever card is current)
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kBytes);
+      flash_fwd_kernel<T, D, kMask>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(batch * hq, (s + kBlockM - 1) / kBlockM), block(kThreads);
-  flash_fwd_kernel<T, D><<<grid, block, L::kBytes, stream>>>(
+  flash_fwd_kernel<T, D, kMask><<<grid, block, L::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      s, hq, hkv, causal, scale);
+      static_cast<const T*>(v), mask, static_cast<T*>(o),
+      static_cast<float*>(lse), s, hq, hkv, mask_heads, causal, scale);
   RETURN_LAUNCH_ERROR();
 }
 
@@ -239,24 +259,21 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 DEFINE_ERROR_STRING()
 
 // q, o: [batch, s, hq, d]; k, v: [batch, s, hkv, d], all contiguous of
-// `dtype` with 16-byte aligned bases; lse: [batch, hq, s] float32.
-// Launches on `stream`, allocates nothing, does not synchronise.
+// `dtype` with 16-byte aligned bases; lse: [batch, hq, s] float32. mask:
+// null (mask_code kNoMask) or a contiguous additive [batch, mask_heads, s, s]
+// of float32 or `dtype` (mask_code), mask_heads 1 or hq. Launches on
+// `stream`, allocates nothing, does not synchronise.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, void* lse,
-                                   int batch, int s, int hq, int hkv, int d,
-                                   int causal, float scale, int dtype,
+                                   const void* v, const void* mask, void* o,
+                                   void* lse, int batch, int s, int hq,
+                                   int hkv, int mask_heads, int d, int causal,
+                                   float scale, int dtype, int mask_code,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool c = causal != 0;
-  if (dtype == kFloat32 && d == 64)
-    return launch<float, 64>(q, k, v, o, lse, batch, s, hq, hkv, c, scale, st);
-  if (dtype == kFloat32 && d == 128)
-    return launch<float, 128>(q, k, v, o, lse, batch, s, hq, hkv, c, scale, st);
-  if (dtype == kBFloat16 && d == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, batch, s, hq, hkv, c,
-                                     scale, st);
-  if (dtype == kBFloat16 && d == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, batch, s, hq, hkv, c,
-                                      scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(dtype, d, mask_code, [&](auto t, auto dim, auto m) {
+    using T = typename decltype(t)::type;
+    return launch<T, decltype(dim)::value, decltype(m)::value>(
+        q, k, v, mask, o, lse, batch, s, hq, hkv, mask_heads, causal != 0,
+        scale, st);
+  });
 }

@@ -7,8 +7,8 @@
 // delta = rowsum(dO * O) computed by the caller:
 //   dQ = scale * sum_k dS K,   dS = P * (dO V^T - delta)
 //   dV = P^T dO,               dK = dS^T (Q * scale)
-// Causal or not, native GQA. The TPU kernels' mask, kv_seqlens and dropout
-// are not ported yet.
+// Causal or not, native GQA, an optional additive mask added to S before the
+// causal mask. The TPU kernels' kv_seqlens and dropout are not ported yet.
 //
 // Bound on this card: at the training shape (s = 2048, d = 128, causal) the
 // three (dQ) and four (dK/dV) products do about s / 2 flops per byte moved,
@@ -37,6 +37,12 @@
 //     ragged tail), so s is never padded and rows past s are never written.
 //     A masked probability is forced to 0 rather than computed, so a fully
 //     masked tile cannot produce NaN.
+//   * The additive mask [batch, 1 | hq, s, s] (float32 or the inputs' type,
+//     a template argument: the unmasked build is unchanged) is read per
+//     score straight from global memory (L2) into registers, with no shared
+//     buffer (dK/dV is already at 167 KB). dQ reads mask rows along k; dK/dV,
+//     whose threads own K rows, reads each Q row's elements at 4 consecutive
+//     K columns, so a warp's loads still fill whole 32-byte sectors.
 //   * No atomics: every output element is written by one thread of one
 //     block after a fixed-order sum, so two launches give identical bits.
 #include "flash_common.cuh"
@@ -57,13 +63,15 @@ struct BwdSmem {
       static_cast<int>(sizeof(float));
 };
 
-template <typename T, int D>
+template <typename T, int D, int kMask>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int s, int hq, int hkv, bool causal, float scale) {
+                    const float* __restrict__ delta,
+                    const void* __restrict__ mask, T* __restrict__ dq, int s,
+                    int hq, int hkv, int mask_heads, bool causal,
+                    float scale) {
   using L = BwdSmem<D>;
   constexpr int kCols = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -106,6 +114,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int n_tiles_all = (s + kBlockN - 1) / kBlockN;
   const int n_tiles = causal ? min(qt + 1, n_tiles_all) : n_tiles_all;
+  const void* plane = nullptr;
+  if constexpr (kMask != kNoMask)
+    plane = mask_plane<kMask>(mask, b, h, mask_heads, s);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBlockN;
@@ -128,6 +139,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
         const bool keep = row < s && col < s && (!causal || col <= row);
+        if constexpr (kMask != kNoMask) {
+          if (row < s && col < s)
+            sc[i][j] += mask_at<kMask>(plane, s, row, col);
+        }
         const float p = keep ? expf(sc[i][j] - row_lse[i]) : 0.f;
         sdS[(ty * 4 + i) * kLdS + tx + 16 * j] = p * (dp[i][j] - row_delta[i]);
       }
@@ -151,14 +166,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int kMask>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int s, int hq, int hkv, bool causal,
-                     float scale) {
+                     const float* __restrict__ delta,
+                     const void* __restrict__ mask, T* __restrict__ dk,
+                     T* __restrict__ dv, int s, int hq, int hkv,
+                     int mask_heads, bool causal, float scale) {
   using L = BwdSmem<D>;
   constexpr int kCols = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -201,6 +217,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int gi = 0; gi < group; ++gi) {
     const int h = hk * group + gi;
     const size_t bh = static_cast<size_t>(b) * hq + h;
+    const void* plane = nullptr;
+    if constexpr (kMask != kNoMask)
+      plane = mask_plane<kMask>(mask, b, h, mask_heads, s);
     for (int qt = qt_first; qt < nq; ++qt) {
       const int q0 = qt * kBlockM;
       const size_t q_off = (static_cast<size_t>(b) * s + q0) * q_stride +
@@ -226,6 +245,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int qrow = q0 + qc;
           const bool keep =
               krow < s && qrow < s && (!causal || krow <= qrow);
+          if constexpr (kMask != kNoMask) {
+            if (krow < s && qrow < s)
+              st[i][j] += mask_at<kMask>(plane, s, qrow, krow);
+          }
           const float p = keep ? expf(st[i][j] - sLse[qc]) : 0.f;
           sP[(ty * 4 + i) * kLdS + qc] = p;
           sdS[(ty * 4 + i) * kLdS + qc] = p * (dpt[i][j] - sDelta[qc]);
@@ -257,48 +280,51 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
-  int batch, s, hq, hkv;
+  const void* mask;
+  int batch, s, hq, hkv, mask_heads;
   bool causal;
   float scale;
 };
 
-template <typename T, int D>
+template <typename T, int D, int kMask>
 int launch_dq(const Args& a, void* dq, cudaStream_t stream) {
   const int bytes = BwdSmem<D>::kDqBytes;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(a.batch * a.hq, (a.s + kBlockM - 1) / kBlockM);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(dq), a.s, a.hq, a.hkv, a.causal, a.scale);
-  RETURN_LAUNCH_ERROR();
-}
-
-template <typename T, int D>
-int launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
-  const int bytes = BwdSmem<D>::kDkvBytes;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
+      flash_bwd_dq_kernel<T, D, kMask>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(a.batch * a.hkv, (a.s + kBlockN - 1) / kBlockN);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid(a.batch * a.hq, (a.s + kBlockM - 1) / kBlockM);
+  flash_bwd_dq_kernel<T, D, kMask><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(dk), static_cast<T*>(dv), a.s, a.hq, a.hkv,
+      a.delta, a.mask, static_cast<T*>(dq), a.s, a.hq, a.hkv, a.mask_heads,
       a.causal, a.scale);
   RETURN_LAUNCH_ERROR();
 }
 
+template <typename T, int D, int kMask>
+int launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
+  const int bytes = BwdSmem<D>::kDkvBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, D, kMask>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(a.batch * a.hkv, (a.s + kBlockN - 1) / kBlockN);
+  flash_bwd_dkv_kernel<T, D, kMask><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.mask, static_cast<T*>(dk), static_cast<T*>(dv), a.s, a.hq,
+      a.hkv, a.mask_heads, a.causal, a.scale);
+  RETURN_LAUNCH_ERROR();
+}
+
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, int batch, int s, int hq,
-               int hkv, int causal, float scale) {
+               const void* lse, const void* delta, const void* mask,
+               int batch, int s, int hq, int hkv, int mask_heads, int causal,
+               float scale) {
   return Args{q, k, v, dout, static_cast<const float*>(lse),
-              static_cast<const float*>(delta), batch, s, hq, hkv,
-              causal != 0, scale};
+              static_cast<const float*>(delta), mask, batch, s, hq, hkv,
+              mask_heads, causal != 0, scale};
 }
 
 }  // namespace
@@ -307,42 +333,41 @@ DEFINE_ERROR_STRING()
 
 // q, dout, dq: [batch, s, hq, d]; k, v, dk, dv: [batch, s, hkv, d], all
 // contiguous of `dtype` with 16-byte aligned bases; lse, delta: [batch, hq,
-// s] float32. Each entry launches one kernel on `stream`, allocates nothing
-// and does not synchronise.
+// s] float32; mask: null (mask_code kNoMask) or the forward's contiguous
+// additive [batch, mask_heads, s, s] of float32 or `dtype` (mask_code).
+// Each entry launches one kernel on `stream`, allocates nothing and does
+// not synchronise.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
-                                      void* dq, int batch, int s, int hq,
-                                      int hkv, int d, int causal, float scale,
-                                      int dtype, void* stream) {
-  const Args a = make_args(q, k, v, dout, lse, delta, batch, s, hq, hkv,
-                           causal, scale);
+                                      const void* mask, void* dq, int batch,
+                                      int s, int hq, int hkv, int mask_heads,
+                                      int d, int causal, float scale,
+                                      int dtype, int mask_code,
+                                      void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, mask, batch, s, hq,
+                           hkv, mask_heads, causal, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32 && d == 64) return launch_dq<float, 64>(a, dq, st);
-  if (dtype == kFloat32 && d == 128) return launch_dq<float, 128>(a, dq, st);
-  if (dtype == kBFloat16 && d == 64)
-    return launch_dq<__nv_bfloat16, 64>(a, dq, st);
-  if (dtype == kBFloat16 && d == 128)
-    return launch_dq<__nv_bfloat16, 128>(a, dq, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(dtype, d, mask_code, [&](auto t, auto dim, auto m) {
+    using T = typename decltype(t)::type;
+    return launch_dq<T, decltype(dim)::value, decltype(m)::value>(a, dq, st);
+  });
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
-                                       void* dk, void* dv, int batch, int s,
-                                       int hq, int hkv, int d, int causal,
-                                       float scale, int dtype, void* stream) {
-  const Args a = make_args(q, k, v, dout, lse, delta, batch, s, hq, hkv,
-                           causal, scale);
+                                       const void* mask, void* dk, void* dv,
+                                       int batch, int s, int hq, int hkv,
+                                       int mask_heads, int d, int causal,
+                                       float scale, int dtype, int mask_code,
+                                       void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, mask, batch, s, hq,
+                           hkv, mask_heads, causal, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32 && d == 64)
-    return launch_dkv<float, 64>(a, dk, dv, st);
-  if (dtype == kFloat32 && d == 128)
-    return launch_dkv<float, 128>(a, dk, dv, st);
-  if (dtype == kBFloat16 && d == 64)
-    return launch_dkv<__nv_bfloat16, 64>(a, dk, dv, st);
-  if (dtype == kBFloat16 && d == 128)
-    return launch_dkv<__nv_bfloat16, 128>(a, dk, dv, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(dtype, d, mask_code, [&](auto t, auto dim, auto m) {
+    using T = typename decltype(t)::type;
+    return launch_dkv<T, decltype(dim)::value, decltype(m)::value>(a, dk, dv,
+                                                                    st);
+  });
 }

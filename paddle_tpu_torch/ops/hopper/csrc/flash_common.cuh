@@ -1,11 +1,18 @@
-// Tile helpers shared by the flash-attention forward and backward kernels:
-// 64-row tiles staged in float32 shared memory by 256 threads laid out as
-// 16 x 16, each thread owning 4 rows (ty * 4 + i) and 4 columns (tx + 16 j)
-// of a 64 x 64 score tile, and a 4 x d/16 patch (columns 64 cc + 4 tx + e)
-// of a 64 x d output tile.
+// Tile helpers shared by the flash-attention forward and backward kernels
+// and the block-sparse forward: 64-row tiles staged in float32 shared memory
+// by 256 threads laid out as 16 x 16, each thread owning 4 rows (ty * 4 + i)
+// and 4 columns (tx + 16 j) of a 64 x 64 score tile, and a 4 x d/16 patch
+// (columns 64 cc + 4 tx + e) of a 64 x d output tile; the additive mask's
+// readers; the dispatch over input type, head dim and mask type.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
+
+// The additive attention mask's type code, passed by the wrappers (and a
+// template argument of the kernels): none, float32, or bfloat16.
+enum MaskCode { kNoMask = 0, kMaskF32 = 1, kMaskBF16 = 2 };
 
 namespace {
 
@@ -17,18 +24,18 @@ constexpr int kLdS = kBlockN + 4;  // score-tile row stride (floats)
 
 // Copy kBlockN x D elements of a [*, row_stride] tensor into float32 shared
 // memory (leading dimension ld, a multiple of 4), scaled, zero-filling rows
-// past `valid`.
+// past `valid` and columns past `cols` (a multiple of 16 bytes of T).
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
                                           size_t row_stride, int valid,
-                                          float scale) {
+                                          float scale, int cols = D) {
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int kChunks = kBlockN * D / kVec;
   for (int c = threadIdx.x; c < kChunks; c += kThreads) {
     const int r = c / (D / kVec);
     const int col = (c % (D / kVec)) * kVec;
     float vals[kVec];
-    if (r < valid) {
+    if (r < valid && col < cols) {
       const uint4 raw =
           *reinterpret_cast<const uint4*>(src + r * row_stride + col);
       const T* e = reinterpret_cast<const T*>(&raw);
@@ -134,6 +141,59 @@ __device__ __forceinline__ void tile_accumulate(const float* p,
       }
     }
   }
+}
+
+// The (batch, head) plane of an additive mask [batch, mask_heads, s, s]:
+// one plane serves every head when mask_heads is 1.
+template <int kMask>
+__device__ __forceinline__ const void* mask_plane(const void* mask, int b,
+                                                  int h, int mask_heads,
+                                                  int s) {
+  constexpr size_t kBytes = kMask == kMaskF32 ? 4 : 2;
+  const size_t plane = static_cast<size_t>(b) * mask_heads +
+                       (mask_heads == 1 ? 0 : h);
+  return static_cast<const char*>(mask) + plane * s * s * kBytes;
+}
+
+// Element (row, col) of a mask plane, as float32.
+template <int kMask>
+__device__ __forceinline__ float mask_at(const void* plane, int s, int row,
+                                         int col) {
+  const size_t at = static_cast<size_t>(row) * s + col;
+  if constexpr (kMask == kMaskF32) {
+    return __ldg(static_cast<const float*>(plane) + at);
+  } else {
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(plane)[at]);
+  }
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// Calls f(Tag<T>, Int<D>, Int<kMask>) for the runtime input type, head dim
+// (64 or 128) and mask code; the mask is float32 or of the inputs' type.
+// Returns what f returns, or cudaErrorInvalidValue for another combination.
+template <typename F>
+int dispatch(int dtype, int d, int mask, F&& f) {
+  auto by_dim = [&](auto t, auto m) -> int {
+    if (d == 64) return f(t, Int<64>{}, m);
+    if (d == 128) return f(t, Int<128>{}, m);
+    return static_cast<int>(cudaErrorInvalidValue);
+  };
+  if (dtype == kFloat32) {
+    if (mask == kNoMask) return by_dim(Tag<float>{}, Int<kNoMask>{});
+    if (mask == kMaskF32) return by_dim(Tag<float>{}, Int<kMaskF32>{});
+  } else if (dtype == kBFloat16) {
+    using B = __nv_bfloat16;
+    if (mask == kNoMask) return by_dim(Tag<B>{}, Int<kNoMask>{});
+    if (mask == kMaskF32) return by_dim(Tag<B>{}, Int<kMaskF32>{});
+    if (mask == kMaskBF16) return by_dim(Tag<B>{}, Int<kMaskBF16>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
