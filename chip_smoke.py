@@ -7,7 +7,8 @@ Phases, each printing JSON lines (any failure exits non-zero):
 
 1. device: the card (nvidia-smi name and power limit), versions, and the
    build of every kernel under paddle_tpu_torch/ops/hopper/csrc with nvcc
-   (one process per source, all started together).
+   (one process per source, all started together), with ptxas's report
+   (registers, spills) and the shared memory of each bf16 backward build.
 2. kernels: each kernel against its plain PyTorch version on the card,
    case by case with the tolerance stated (and, for the backward and AdamW
    kernels, two launches bit for bit), the flash kernels also under
@@ -15,7 +16,8 @@ Phases, each printing JSON lines (any failure exits non-zero):
    and full tile rows, then timed at the serving and training paths'
    shapes (and the masked flash kernels at the packed-document training
    shape) beside its plain version, one PyTorch library call, and the
-   card's bound for the same work.
+   card's bound for the same work; the whole flash backward (delta, dQ,
+   dK/dV) is timed beside SDPA's backward, causal and masked.
 3. width: Llama-2-7B width (bf16, 2 layers, random weights from --seed),
    one 128-token prompt, prefill on the card (kernels) against the same
    weights in float32 on the CPU (plain versions).
@@ -31,13 +33,14 @@ Phases, each printing JSON lines (any failure exits non-zero):
    and a short profile of one prefill and one decode step is printed.
 5. train: Llama-2-7B width at 8 of its 32 layers trains 5 steps of
    4 x 2048 tokens (AdamW, amp.decorate O2 bf16, recompute, TrainStep);
-   the launch counts of one step prove the path ran every kernel. Step
+   the launch counts of one step prove the path ran every kernel, and its
+   profile that the backward ran the bf16 tensor-core builds only. Step
    time, tokens/s, MFU, peak memory, the device's idle share, the top
    kernels of one profiled step and every loss are reported.
 5b. train_packed: the same path trains 3 steps on packed documents under a
    float32 [4, 1, 2048, 2048] block-diagonal causal mask (document lengths
    drawn from --seed); the launch counts of one step prove the masked
-   flash kernels ran. The same reports as train.
+   flash kernels ran. The same reports and checks as train.
 6. sparse: F.sparse_attention at BERT-base width (12 heads x 64) and
    BigBird-base length (4096 tokens; 2 global, 3 window and 3 random
    128-token tiles) from an int32 CSR built from --seed: one block-sparse
@@ -52,9 +55,11 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -201,7 +206,45 @@ def phase_device():
           "capability": list(torch.cuda.get_device_capability(0)),
           "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "nvcc": nvcc_version,
-          "kernel_build_s": build_s, "ptxas": ptxas})
+          "kernel_build_s": build_s, "ptxas": ptxas,
+          "ptxas_bwd_wgmma": wgmma_bwd_report(
+              _build.build_logs.get("flash_attention_bwd", ""))})
+
+
+def wgmma_bwd_report(log):
+    """Per build of the bf16 backward kernels (flash_bwd_dq_wgmma and
+    flash_bwd_dkv_wgmma, template <D, mask code, mask as TMA windows>):
+    ptxas's registers and spill lines and any note that it serialised the
+    wgmma products, and the dynamic shared memory the launch asks for
+    (ptxas reports static shared memory only)."""
+    from paddle_tpu_torch.ops.hopper import _build
+    from paddle_tpu_torch.ops.hopper.flash_attention import _BWD_SIGNATURES
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    smem_of = lib.flash_attention_bwd_wgmma_smem
+    smem_of.argtypes = [ctypes.c_int] * 4
+    smem_of.restype = ctypes.c_int
+    report, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(flash_bwd_\w+_wgmma)"
+                      r"ILi(\d+)ELi(\d+)ELb([01])E", ln)
+        serial = re.search(r"\((C75\d\d)\).*?serialized.*?"
+                           r"(flash_bwd_\w+_wgmma)ILi(\d+)ELi(\d+)ELb([01])E",
+                           ln)
+        if m:
+            name = f"{m[1]}<{m[2]}, {m[3]}, {m[4]}>"
+            smem = smem_of(int("dkv" in m[1]), int(m[2]), int(m[3]),
+                           int(m[4]))
+            report.setdefault(name, []).append(
+                f"{smem} bytes dynamic shared memory")
+        elif serial:
+            report.setdefault(f"{serial[2]}<{serial[3]}, {serial[4]}, "
+                              f"{serial[5]}>", []).append(
+                f"{serial[1]}: wgmma serialized")
+        elif "Compiling entry function" in ln:
+            name = None
+        elif name and ("spill" in ln or "registers" in ln):
+            report[name].append(ln.split("info    :")[-1].strip())
+    return report
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -437,6 +480,7 @@ def train_kernels(gen):
     """The backward and AdamW kernels: every case, then timings at the
     train phase's shapes."""
     from paddle_tpu_torch.ops.hopper import (adamw_, adamw_plain,
+                                             flash_attention_bwd,
                                              flash_attention_bwd_dkv,
                                              flash_attention_bwd_dq,
                                              flash_attention_bwd_plain,
@@ -452,6 +496,10 @@ def train_kernels(gen):
                     for d in (128, 64):
                         flash_bwd_case(gen, dtype, causal, hq, hkv, s, d,
                                        b=1 if s == 2048 else 2)
+    # s = 1000 is a multiple of neither the 64- nor the 128-row tiles
+    for causal in (True, False):
+        for d in (128, 64):
+            flash_bwd_case(gen, bf16, causal, 32, 4, 1000, d)
     for dtype, shape in ((bf16, (8192, 4096)), (bf16, (300, 1000)),
                          (torch.float32, (8192, 4096)),
                          (torch.float32, (300, 1000))):
@@ -505,6 +553,12 @@ def train_kernels(gen):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
             "library_note": "backward of F.scaled_dot_product_attention "
                             "(dq, dk, dv together)"})
+    emit({"phase": "kernels", "timing_whole_bwd": {
+        "shape": shape, "what": "flash_attention_bwd: delta, dQ, dK/dV",
+        "ms": time_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse,
+                                                  True)),
+        "library_ms": library_ms,
+        "library_note": "backward of F.scaled_dot_product_attention"}})
     del q, k, v, out, dout, lse, delta
 
     (x, w, g, rstd), rrec = rms_bwd_case(gen, bf16, (8192, 4096))
@@ -630,6 +684,11 @@ def masked_flash_kernels(gen, seed):
     for s, d in ((2048, 128), (300, 64)):       # a mask of q's type
         masked_flash_case(gen, bf16, bf16, False, 32, 8, s, d, 1,
                           b=1 if s == 2048 else 2)
+    # s = 1000: ragged tiles; the bf16 mask's rows (2000 bytes) reach the
+    # kernels by TMA, where s = 300's (600 bytes) are read from memory
+    for causal in (False, True):
+        for d in (128, 64):
+            masked_flash_case(gen, bf16, bf16, causal, 32, 4, 1000, d, 1)
 
     # the packed-document training shape: q, k, v [4, 2048, 32, 128] bf16,
     # non-causal under a float32 [4, 1, 2048, 2048] mask
@@ -697,6 +756,13 @@ def masked_flash_kernels(gen, seed):
                          "bound_by": b_by, "library_ms": lib_ms}
         emit({"phase": "kernels", "timing_masked": dict(name=name,
                                                         **records[name])})
+    emit({"phase": "kernels", "timing_whole_bwd_masked": {
+        "shape": shape, "what": "flash_attention_bwd: delta, dQ, dK/dV",
+        "ms": time_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse,
+                                                  False, mask)),
+        "library_ms": bwd_lib,
+        "library_note": "backward of F.scaled_dot_product_attention, bf16 "
+                        "mask"}})
     del q, k, v, dout, out, lse, delta, mask
     torch.cuda.empty_cache()
     return records
@@ -980,7 +1046,10 @@ def profile_one(fn):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     return {"device_ms": sum(r[1] for r in rows) or "not measured",
-            "top": [[k[:60], round(ms, 4), n] for k, ms, n in rows[:10]]}
+            "top": [[k[:60], round(ms, 4), n] for k, ms, n in rows[:10]],
+            "flash_bwd_kernels": sorted({m for k, _, _ in rows
+                                         for m in re.findall(
+                                             r"flash_bwd_\w+", k)})}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1059,6 +1128,12 @@ def phase_train(seed, packed=False):
           "profile_step": profile})
     if launches != expect:
         fail(f"train launch counts {launches}, expected {expect}")
+    # bf16 gradients go through the tensor-core builds, never the float32
+    # FMA kernels (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)
+    if profile["flash_bwd_kernels"] != ["flash_bwd_dkv_wgmma",
+                                        "flash_bwd_dq_wgmma"]:
+        fail(f"train backward kernels {profile['flash_bwd_kernels']}, "
+             "expected the wgmma builds only")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         fail(f"train losses not finite and falling: {losses}")

@@ -4,7 +4,9 @@ their plain versions.
 Counterpart: ``paddle_tpu/ops/pallas/flash_attention.py`` (``_fwd_kernel``
 through ``_fwd_call``; ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` through
 ``_bwd_call``; the ``_flash`` custom vjp). The kernels are
-``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``. The public
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``; in the
+backward, bfloat16 takes the tensor-core (wgmma, TMA) builds and float32
+the float32 FMA builds. The public
 layout stays ``[b, s, h, d]``, GQA is native (k/v carry ``hkv`` heads with
 ``hq % hkv == 0``), and the forward's outputs are O and the float32
 log-sum-exp ``[b, hq, s]``. An optional additive mask ``[b, 1 | hq, s, s]``
