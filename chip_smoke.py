@@ -8,16 +8,20 @@ Phases, each printing JSON lines (any failure exits non-zero):
 1. device: the card (nvidia-smi name and power limit), versions, and the
    build of every kernel under paddle_tpu_torch/ops/hopper/csrc with nvcc
    (one process per source, all started together), with ptxas's report
-   (registers, spills) and the shared memory of each bf16 backward build.
+   (registers, spills, serialised wgmma) and the shared memory of each
+   bf16 tensor-core build; a forward or block-sparse build that spills or
+   serialises its products fails (the forward's builds that read a mask
+   from global memory excepted).
 2. kernels: each kernel against its plain PyTorch version on the card,
    case by case with the tolerance stated (and, for the backward and AdamW
-   kernels, two launches bit for bit), the flash kernels also under
-   additive masks and the block-sparse kernel over random, BigBird, empty
-   and full tile rows, then timed at the serving and training paths'
-   shapes (and the masked flash kernels at the packed-document training
-   shape) beside its plain version, one PyTorch library call, and the
-   card's bound for the same work; the whole flash backward (delta, dQ,
-   dK/dV) is timed beside SDPA's backward, causal and masked.
+   kernels and one forward and one block-sparse case, two launches bit for
+   bit), the flash kernels also under additive masks and the block-sparse
+   kernel over random, BigBird, empty and full tile rows and tiles of 64
+   to 192 rows, then timed at the serving and training paths' shapes (the
+   forward at both, and the masked flash kernels at the packed-document
+   training shape) beside its plain version, one PyTorch library call, and
+   the card's bound for the same work; the whole flash backward (delta,
+   dQ, dK/dV) is timed beside SDPA's backward, causal and masked.
 3. width: Llama-2-7B width (bf16, 2 layers, random weights from --seed),
    one 128-token prompt, prefill on the card (kernels) against the same
    weights in float32 on the CPU (plain versions).
@@ -29,14 +33,17 @@ Phases, each printing JSON lines (any failure exits non-zero):
 4. serve: Llama-2-7B (bf16, all 32 layers) serves 4
    requests of 512 prompt tokens and 32 greedy new tokens through
    LlamaForCausalLM.generate; the launch counts prove the path ran the
-   kernels. Prefill time, decode tokens/s and peak memory are reported,
-   and a short profile of one prefill and one decode step is printed.
+   kernels, and the profile of one prefill that its attention ran the
+   bf16 tensor-core forward only. Prefill time, decode tokens/s and peak
+   memory are reported, and a short profile of one prefill and one decode
+   step is printed.
 5. train: Llama-2-7B width at 8 of its 32 layers trains 5 steps of
    4 x 2048 tokens (AdamW, amp.decorate O2 bf16, recompute, TrainStep);
    the launch counts of one step prove the path ran every kernel, and its
-   profile that the backward ran the bf16 tensor-core builds only. Step
-   time, tokens/s, MFU, peak memory, the device's idle share, the top
-   kernels of one profiled step and every loss are reported.
+   profile that the forward and the backward ran the bf16 tensor-core
+   builds only. Step time, tokens/s, MFU, peak memory, the device's idle
+   share, the top kernels of one profiled step and every loss are
+   reported.
 5b. train_packed: the same path trains 3 steps on packed documents under a
    float32 [4, 1, 2048, 2048] block-diagonal causal mask (document lengths
    drawn from --seed); the launch counts of one step prove the masked
@@ -44,9 +51,10 @@ Phases, each printing JSON lines (any failure exits non-zero):
 6. sparse: F.sparse_attention at BERT-base width (12 heads x 64) and
    BigBird-base length (4096 tokens; 2 global, 3 window and 3 random
    128-token tiles) from an int32 CSR built from --seed: one block-sparse
-   launch per call, the output and the q/k/v grads against the plain
-   version, the call's host (CSR probe) and device time; then a pattern
-   that is not tile-aligned takes the dense route with no launch.
+   launch per call (the tensor-core build, by its profile), the output and
+   the q/k/v grads against the plain version, the call's host (CSR probe)
+   and device time; then a pattern that is not tile-aligned takes the
+   dense route with no launch.
 
 The last two lines are the {"kernels": [...]} summary and the result
 {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -57,6 +65,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import importlib
 import json
 import math
 import re
@@ -201,55 +210,88 @@ def phase_device():
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
              for n, log in _build.build_logs.items()}
+    report = wgmma_report(_build.build_logs)
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)),
           "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "nvcc": nvcc_version,
           "kernel_build_s": build_s, "ptxas": ptxas,
-          "ptxas_bwd_wgmma": wgmma_bwd_report(
-              _build.build_logs.get("flash_attention_bwd", ""))})
+          "ptxas_wgmma": report})
+    # the forward and block-sparse tensor-core builds (all but the
+    # forward's global-read mask builds) must neither spill nor serialise
+    # their products
+    def faulty(note):
+        return "serialized" in note or any(
+            int(n) for n in re.findall(r"(\d+) bytes spill", note))
+
+    bad = {n: notes for n, notes in report.items()
+           if (n.startswith("block_sparse") or (n.startswith("flash_fwd")
+                                                and not re.search(
+                                                    r", [12], 0>$", n)))
+           and any(faulty(x) for x in notes)}
+    if bad:
+        fail(f"wgmma builds spill or serialise: {bad}")
 
 
-def wgmma_bwd_report(log):
-    """Per build of the bf16 backward kernels (flash_bwd_dq_wgmma and
-    flash_bwd_dkv_wgmma, template <D, mask code, mask as TMA windows>):
-    ptxas's registers and spill lines and any note that it serialised the
-    wgmma products, and the dynamic shared memory the launch asks for
-    (ptxas reports static shared memory only)."""
+# source -> the C entry of its wgmma builds' shared-memory query
+WGMMA_SOURCES = {
+    "flash_attention": "flash_attention_fwd_wgmma_smem",
+    "flash_attention_bwd": "flash_attention_bwd_wgmma_smem",
+    "block_sparse_attention": "block_sparse_attention_fwd_wgmma_smem",
+}
+WGMMA_KERNELS = ("flash_fwd_wgmma|flash_bwd_dq_wgmma|flash_bwd_dkv_wgmma|"
+                 "block_sparse_fwd_wgmma")
+
+
+def wgmma_report(logs):
+    """Per build of the bf16 tensor-core kernels (flash_fwd_wgmma,
+    flash_bwd_dq_wgmma and flash_bwd_dkv_wgmma, template <D, mask code,
+    mask as TMA windows>; block_sparse_fwd_wgmma, template <D, consumer
+    warpgroups>): ptxas's registers and spill lines and any note that it
+    serialised the wgmma products, and the dynamic shared memory the launch
+    asks for (ptxas reports static shared memory only)."""
     from paddle_tpu_torch.ops.hopper import _build
-    from paddle_tpu_torch.ops.hopper.flash_attention import _BWD_SIGNATURES
-    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
-    smem_of = lib.flash_attention_bwd_wgmma_smem
-    smem_of.argtypes = [ctypes.c_int] * 4
-    smem_of.restype = ctypes.c_int
-    report, name = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(flash_bwd_\w+_wgmma)"
-                      r"ILi(\d+)ELi(\d+)ELb([01])E", ln)
-        serial = re.search(r"\((C75\d\d)\).*?serialized.*?"
-                           r"(flash_bwd_\w+_wgmma)ILi(\d+)ELi(\d+)ELb([01])E",
-                           ln)
-        if m:
-            name = f"{m[1]}<{m[2]}, {m[3]}, {m[4]}>"
-            smem = smem_of(int("dkv" in m[1]), int(m[2]), int(m[3]),
-                           int(m[4]))
-            report.setdefault(name, []).append(
-                f"{smem} bytes dynamic shared memory")
-        elif serial:
-            report.setdefault(f"{serial[2]}<{serial[3]}, {serial[4]}, "
-                              f"{serial[5]}>", []).append(
-                f"{serial[1]}: wgmma serialized")
-        elif "Compiling entry function" in ln:
-            name = None
-        elif name and ("spill" in ln or "registers" in ln):
-            report[name].append(ln.split("info    :")[-1].strip())
+    # the wrappers' signatures: the first load of a library sets them (the
+    # package's names flash_attention and block_sparse_attention are the
+    # functions, so the modules come by their full names)
+    fa, bs = (importlib.import_module(f"paddle_tpu_torch.ops.hopper.{m}")
+              for m in ("flash_attention", "block_sparse_attention"))
+    signatures = {"flash_attention": fa._SIGNATURES,
+                  "flash_attention_bwd": fa._BWD_SIGNATURES,
+                  "block_sparse_attention": bs._SIGNATURES}
+    mangled = re.compile(rf"({WGMMA_KERNELS})I((?:L[ib]\d+E)+)E")
+    report = {}
+    for source, query in WGMMA_SOURCES.items():
+        lib = _build.load(source, signatures[source])
+        smem_of = getattr(lib, query)  # int arguments, int result
+        name = None
+        for ln in logs.get(source, "").splitlines():
+            m = mangled.search(ln)
+            if m:
+                args = [int(a) for a in re.findall(r"L[ib](\d+)E", m[2])]
+                key = f"{m[1]}<{', '.join(map(str, args))}>"
+            if m and "Compiling entry function" in ln:
+                name = key
+                which = [int("dkv" in m[1])] if "bwd" in m[1] else []
+                report.setdefault(name, []).append(
+                    f"{smem_of(*which, *args)} bytes dynamic shared memory")
+            elif m and "serialized" in ln:
+                code = re.search(r"\((C75\d\d)\)", ln)
+                report.setdefault(key, []).append(
+                    f"{code[1] if code else 'C75xx'}: wgmma serialized")
+            elif "Compiling entry function" in ln:
+                name = None
+            elif name and ("spill" in ln or "registers" in ln):
+                report[name].append(ln.split("info    :")[-1].strip())
     return report
 
 
 # -- phase 2 -----------------------------------------------------------------
 
-def flash_case(gen, dtype, causal, hq, hkv, s, d, b=2):
+def flash_case(gen, dtype, causal, hq, hkv, s, d, b=2, twice=False):
+    """The forward kernel against its plain version; with `twice`, a second
+    launch must give the same bits."""
     from paddle_tpu_torch.ops.hopper import (flash_attention,
                                              flash_attention_plain)
     q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
@@ -257,15 +299,21 @@ def flash_case(gen, dtype, causal, hq, hkv, s, d, b=2):
     v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
     out, lse = flash_attention(q, k, v, causal=causal)
     ref, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal) if twice else None
     torch.cuda.synchronize()
     rec = {"kernel": "flash_attention", "dtype": str(dtype)[6:],
            "causal": causal, "heads": [hq, hkv], "s": s, "d": d,
            "max_abs_err": max_err(out, ref), "tol": tolerance(ref, dtype),
            "lse_max_abs_err": max_err(lse, ref_lse),
            "lse_tol": tolerance(ref_lse, torch.float32)}
+    ok = rec["max_abs_err"] <= rec["tol"] and \
+        rec["lse_max_abs_err"] <= rec["lse_tol"]
+    if twice:
+        rec["bit_identical"] = torch.equal(out, again[0]) and \
+            torch.equal(lse, again[1])
+        ok = ok and rec["bit_identical"]
     emit(rec)
-    if not (rec["max_abs_err"] <= rec["tol"]
-            and rec["lse_max_abs_err"] <= rec["lse_tol"]):
+    if not ok:
         fail(f"flash_attention disagrees with its plain version: {rec}")
     return (q, k, v), rec
 
@@ -409,10 +457,11 @@ def phase_kernels(seed):
     for dtype in (bf16, torch.float32):
         for causal in (True, False):
             for hq, hkv in ((32, 32), (32, 8)):
-                for s in (2048, 512, 300):
+                for s in (2048, 512, 300, 1000):
                     for d in (128, 64):
                         flash_case(gen, dtype, causal, hq, hkv, s, d,
                                    b=1 if s == 2048 else 2)
+    flash_case(gen, bf16, True, 32, 8, 1000, 128, twice=True)
     for dtype, shape in ((bf16, (4 * 2048, 4096)), (bf16, (4 * 512, 4096)),
                          (bf16, (4, 1, 4096)),
                          (bf16, (37, 4096)), (torch.float32, (37, 4096)),
@@ -466,7 +515,8 @@ def phase_kernels(seed):
         else:
             emit({"phase": "kernels", "timing_at_decode_shape": rec})
         del x, w
-    records = [flash, rms] + train_kernels(gen)
+    train_records, flash["train_causal"] = train_kernels(gen)
+    records = [flash, rms] + train_records
     for rec in records:
         emit({"phase": "kernels", "timing": rec})
     masked = masked_flash_kernels(gen, seed)
@@ -512,7 +562,8 @@ def train_kernels(gen):
     # the train phase's shapes: attention q, k, v [4, 2048, 32, 128] bf16
     # causal (its forward checked first, then the backward on the same
     # inputs); norms x [8192, 4096] bf16; AdamW on one [11008, 4096] weight
-    qkv, _ = flash_case(gen, bf16, True, 32, 32, 2048, 128, b=4)
+    qkv, fwd_rec = flash_case(gen, bf16, True, 32, 32, 2048, 128, b=4)
+    fwd_train = flash_train_timing(qkv, fwd_rec)
     (q, k, v, out, dout, lse), frec = flash_bwd_case(gen, bf16, True, 32, 32,
                                                      2048, 128, b=4, qkv=qkv)
     del qkv
@@ -612,7 +663,32 @@ def train_kernels(gen):
                         "param and grad"})
     del p, m, v, gr, copy, lib_p, lib_opt
     torch.cuda.empty_cache()
-    return records
+    return records, fwd_train
+
+
+def flash_train_timing(qkv, rec):
+    """The forward kernel's timing at the train phase's shape, q, k, v
+    [4, 2048, 32, 128] bf16 causal (16 launches a train step)."""
+    from paddle_tpu_torch.ops.hopper import (flash_attention,
+                                             flash_attention_plain)
+    F = torch.nn.functional
+    q, k, v = qkv
+    b, s, hq, d = q.shape
+    pairs = s * (s + 1) // 2
+    f_bound, f_by = bound(4 * q.numel() * q.element_size() + b * hq * s * 4,
+                          4 * b * hq * d * pairs, H100_BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2) for t in qkv)
+    timing = {
+        "shape": "q,k,v [4, 2048, 32, 128] bf16 causal",
+        "max_abs_err": rec["max_abs_err"], "tol": rec["tol"],
+        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
+        "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, True), 5),
+        "bound_ms": f_bound, "bound_by": f_by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))}
+    emit({"phase": "kernels",
+          "timing_train_shape": dict(name="flash_attention", **timing)})
+    return timing
 
 
 def masked_flash_case(gen, dtype, mask_dtype, causal, hq, hkv, s, d,
@@ -681,6 +757,11 @@ def masked_flash_kernels(gen, seed):
                         masked_flash_case(gen, dtype, f32, causal, hq, hkv, s,
                                           d, mask_heads,
                                           b=1 if s == 2048 else 2)
+    # the forward's other lengths: 512 (whole tiles) and 1000 (ragged)
+    for dtype in (bf16, f32):
+        for causal in (False, True):
+            for s, d in ((512, 64), (1000, 128)):
+                masked_flash_case(gen, dtype, f32, causal, 32, 8, s, d, 1)
     for s, d in ((2048, 128), (300, 64)):       # a mask of q's type
         masked_flash_case(gen, bf16, bf16, False, 32, 8, s, d, 1,
                           b=1 if s == 2048 else 2)
@@ -768,32 +849,42 @@ def masked_flash_kernels(gen, seed):
     return records
 
 
-def block_sparse_case(gen, dtype, s, d, bm, b=2, h=3):
+def block_sparse_case(gen, dtype, s, d, bm, b=2, h=3, blocks=(128, 128),
+                      twice=False):
     """The block-sparse kernel against its plain version on q, k, v
-    [b, s, h, d] and on transposed [b, h, s, d] tensors read in place."""
+    [b, s, h, d] and on transposed [b, h, s, d] tensors read in place, with
+    tiles of `blocks` (block_q, block_k); with `twice`, a second launch must
+    give the same bits."""
     from paddle_tpu_torch.ops.hopper import (block_sparse_attention_fwd,
                                              block_sparse_attention_plain)
-    errs, tols, rows_zero = [], [], True
+    errs, tols, rows_zero, same = [], [], True, True
     for layout in ("bshd", "bhsd"):
         shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
         q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(dtype)
                    for _ in range(3))
         if layout == "bhsd":
             q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-        out = block_sparse_attention_fwd(q, k, v, bm)
-        ref = block_sparse_attention_plain(q, k, v, bm)
+        out = block_sparse_attention_fwd(q, k, v, bm, *blocks)
+        ref = block_sparse_attention_plain(q, k, v, bm, *blocks)
+        if twice:
+            same = same and torch.equal(
+                out, block_sparse_attention_fwd(q, k, v, bm, *blocks))
         torch.cuda.synchronize()
         errs.append(max_err(out, ref))
         tols.append(tolerance(ref, dtype))
-        empty = torch.from_numpy(np.repeat(~bm.any(axis=1), 128)).cuda()
+        empty = torch.from_numpy(np.repeat(~bm.any(axis=1),
+                                           blocks[0])).cuda()
         rows_zero = rows_zero and bool((out[:, empty] == 0).all())
     rec = {"kernel": "block_sparse_attention", "dtype": str(dtype)[6:],
-           "s": s, "d": d, "active_tiles": int(bm.sum()),
+           "s": s, "d": d, "blocks": list(blocks),
+           "active_tiles": int(bm.sum()),
            "empty_rows": int((~bm.any(axis=1)).sum()),
            "full_rows": int(bm.all(axis=1).sum()), "max_abs_err": errs,
            "tol": tols, "empty_rows_exactly_zero": rows_zero}
+    if twice:
+        rec["bit_identical"] = same
     emit(rec)
-    if not rows_zero or any(e > t for e, t in zip(errs, tols)):
+    if not rows_zero or not same or any(e > t for e, t in zip(errs, tols)):
         fail(f"block_sparse_attention disagrees with its plain version: "
              f"{rec}")
     return max(errs)
@@ -816,7 +907,16 @@ def block_sparse_kernels(gen, seed):
                 block_sparse_case(gen, dtype, s, d, bm, b=1 if s == 4096
                                   else 2)
             block_sparse_case(gen, dtype, 4096, d, bigbird_tiles(32, seed),
-                              b=1)
+                              b=1, twice=dtype == torch.bfloat16 and d == 64)
+        # 64-row pattern tiles: a 128-row block would span two pattern rows
+        # (the build of one consumer warpgroup); 64-row K tiles
+        for blocks in ((64, 64), (64, 128), (128, 64), (192, 128)):
+            for d in (128, 64, 40):
+                s = 768
+                bm = rng.rand(s // blocks[0], s // blocks[1]) < 0.4
+                bm[1] = False
+                bm[-1] = True
+                block_sparse_case(gen, dtype, s, d, bm, blocks=blocks)
 
     b, s, h, d = 4, 4096, 12, 64
     bm = bigbird_tiles(s // 128, seed)
@@ -1014,6 +1114,10 @@ def phase_serve(seed):
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         profile = profile_steps(model, ids, s_max)
+    if profile["prefill"]["flash_fwd_kernels"] != ["flash_fwd_wgmma"]:
+        fail(f"prefill forward kernels "
+             f"{profile['prefill']['flash_fwd_kernels']}, expected the wgmma "
+             "build only")
     step_ms = {"prefill": sorted(prefill_ms)[1],
                "decode_step": decode_s * 1e3 / (new - 1)}
     # share of the step's wall time with no kernel running: device time
@@ -1031,25 +1135,38 @@ def phase_serve(seed):
     return launches
 
 
-def profile_one(fn):
-    """Device time by kernel over one call of fn."""
+def profile_one(fn, calls=1, attempts=3):
+    """Device time by kernel over `calls` calls of fn. A session whose
+    trace holds no device activity at all lost its trace, not its
+    kernels (the launch counters say what ran): it is run again, up to
+    `attempts` sessions in all, and `attempts` in the result counts them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if rows:
+            break
+        print(f"chip_smoke: profiler session {attempt} recorded no device "
+              "activity", file=sys.stderr, flush=True)
     rows.sort(key=lambda r: -r[1])
     return {"device_ms": sum(r[1] for r in rows) or "not measured",
+            "attempts": attempt,
             "top": [[k[:60], round(ms, 4), n] for k, ms, n in rows[:10]],
-            "flash_bwd_kernels": sorted({m for k, _, _ in rows
-                                         for m in re.findall(
-                                             r"flash_bwd_\w+", k)})}
+            **{f"{what}_kernels": sorted({m for k, _, _ in rows
+                                          for m in re.findall(pat, k)})
+               for what, pat in (("flash_fwd", r"flash_fwd_\w+"),
+                                 ("flash_bwd", r"flash_bwd_\w+"),
+                                 ("block_sparse",
+                                  r"block_sparse_fwd_\w+"))}}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1134,6 +1251,11 @@ def phase_train(seed, packed=False):
                                         "flash_bwd_dq_wgmma"]:
         fail(f"train backward kernels {profile['flash_bwd_kernels']}, "
              "expected the wgmma builds only")
+    # and the forward (twice a layer, with recompute) through the tensor-core
+    # build, never the float32 FMA kernel (flash_fwd_kernel)
+    if profile["flash_fwd_kernels"] != ["flash_fwd_wgmma"]:
+        fail(f"train forward kernels {profile['flash_fwd_kernels']}, "
+             "expected the wgmma build only")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         fail(f"train losses not finite and falling: {losses}")
@@ -1243,8 +1365,23 @@ def phase_sparse(seed):
             digests.append(time.perf_counter() - t0)
     if launch_counts()["block_sparse_attention"] != 5:
         fail(f"sparse: {launch_counts()} launches over 5 calls")
+    # three calls in one session: the check rests on more than one trace
+    # record, and the first calls' kernels lie well inside the window
+    reset_launch_counts()
+    with torch.no_grad():
+        prof = profile_one(lambda: FE.sparse_attention(q, k, v, offs, cols),
+                           calls=3)
+    if launch_counts()["block_sparse_attention"] != 3 or \
+            prof["block_sparse_kernels"] != ["block_sparse_fwd_wgmma"]:
+        fail(f"sparse kernels {prof['block_sparse_kernels']} over "
+             f"{launch_counts()['block_sparse_attention']} launches, expected "
+             f"the wgmma build; the profile: {prof}")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     rec.update({
+        "kernels": prof["block_sparse_kernels"],
+        "profiled_kernels": sum(n for key, _, n in prof["top"]
+                                if "block_sparse_fwd" in key),
+        "profile_attempts": prof["attempts"],
         "call_ms": sorted(walls)[2] * 1e3,
         "host_probe_ms": sorted(hosts)[2] * 1e3,
         "host_sha1_ms": sorted(digests)[2] * 1e3,

@@ -4,13 +4,15 @@ version, and the dense masked recompute that is its backward.
 Counterpart: ``paddle_tpu/ops/pallas/block_sparse_attention.py``
 (``_bs_fwd_kernel`` through ``_bs_fwd``; ``compress_block_mask``; the
 ``_bs`` custom vjp, whose backward is the dense masked path ``_dense_masked``
-in XLA, not a Pallas kernel). The kernel is ``csrc/block_sparse_attention.cu``.
+in XLA, not a Pallas kernel). The kernel is ``csrc/block_sparse_attention.cu``
+(bfloat16: the tensor-core build; float32: the float32 FMA build).
 The layout is ``[b, s, h, d]``; the pattern is a static ``[s / block_q,
 s / block_k]`` tile mask, and a row with no active tile outputs exactly 0.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -27,7 +29,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {"block_sparse_attention_fwd": [
-    _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *[_L] * 9,
+    _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *[_L] * 9,
     ctypes.c_float, _I, _P]}
 
 
@@ -120,6 +122,31 @@ def _check_card(q, k, v, block_q, block_k):
                            "Hopper (sm_90a) only")
 
 
+def _pattern_on(device, bm):
+    """The kernel's view of a tile pattern on ``device``:
+    ``compress_block_mask``'s kmap ``[nq, T]`` and counts ``[nq]``, and
+    the pattern rows by falling count ``[nq]`` (the order the kernel's
+    blocks take them), all int32. Patterns are static, so each is copied
+    to the card once (the last 16 kept)."""
+    return _pattern_cached(torch.device(device), bm.shape,
+                           np.packbits(bm).tobytes())
+
+
+@functools.lru_cache(maxsize=16)
+def _pattern_cached(device, shape, packed):
+    bm = np.unpackbits(np.frombuffer(packed, np.uint8),
+                       count=shape[0] * shape[1]).reshape(shape)
+    kmap, counts = compress_block_mask(bm)
+    order = np.argsort(-counts, kind="stable").astype(np.int32)
+    flat = torch.from_numpy(np.concatenate(
+        [kmap.ravel(), counts, order])).to(device)
+    if device.type == "cuda":        # the copy is done before any stream
+        torch.cuda.current_stream(device).synchronize()  # reads it
+    nq, t = kmap.shape
+    return flat[:nq * t].view(nq, t), flat[nq * t:nq * (t + 1)], \
+        flat[nq * (t + 1):]
+
+
 def block_sparse_attention_fwd(q, k, v, block_mask, block_q=128,
                                block_k=128):
     """The forward with no autograd history: ``[b, s, h, d]`` in q's type
@@ -140,14 +167,12 @@ def block_sparse_attention_fwd(q, k, v, block_mask, block_q=128,
     out = torch.empty_like(q)
     if b == 0 or s == 0 or h == 0:
         return out
-    kmap_np, counts_np = compress_block_mask(bm)
-    kmap = torch.from_numpy(kmap_np).to(q.device)
-    counts = torch.from_numpy(counts_np).to(q.device)
+    kmap, counts, order = _pattern_on(q.device, bm)
     lib = _build.load("block_sparse_attention", _SIGNATURES)
     err = lib.block_sparse_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        kmap.data_ptr(), counts.data_ptr(), b, s, h, d, kmap.shape[1],
-        block_q, block_k, *q.stride()[:3], *out.stride()[:3],
+        kmap.data_ptr(), counts.data_ptr(), order.data_ptr(), b, s, h, d,
+        kmap.shape[1], block_q, block_k, *q.stride()[:3], *out.stride()[:3],
         *k.stride()[:3], 1.0 / math.sqrt(d),
         _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "block_sparse_attention_fwd")

@@ -9,26 +9,45 @@
 //
 // Bound on this card: every active tile costs 4 * 128 * 128 * d flops of
 // products against 2 * 128 * d elements of K and V, so at d = 64 the work
-// is bound by the bf16 tensor cores, not by bytes. This first version
-// multiplies with plain float32 FMAs (67 TFLOP/s peak), as the flash kernels
-// do; tensor-core products are later work.
+// is bound by the bf16 tensor cores, not by bytes.
 //
-// Design, against that bound:
-//   * The flash forward's loop with one indirection. One block of 256
-//     threads per (64-row Q tile, batch * head) walks the active K tiles of
-//     its pattern row in the order kmap lists them, cutting each block_k
-//     tile into 64-row K/V sub-tiles. Masked tiles cost neither loads nor
-//     flops, as on the TPU where the compressed grid never visits them.
-//   * kmap and counts are an int32 device array each; a block reads its
-//     own row of them (the TPU kernel's scalar prefetch).
-//   * Q, K, V and O are read and written in place through their (batch,
-//     row, head) strides, so [b, s, h, d] and a transposed [b, h, s, d]
-//     both need no copy. The last dimension is contiguous.
-//   * Head dims 8..128 in steps of 8 run on the D = 64 or D = 128 build:
-//     loads past d are zero-filled, so they add nothing to the scores or
-//     the output, and stores past d are skipped.
-//   * 85 KB of shared memory at D = 128 (the scaled Q tile, one K-or-V
-//     tile, the probabilities), so two blocks fit on an SM.
+// Both builds are the flash forward's loop with one indirection: a block
+// walks the active K tiles of its pattern row in the order kmap lists them,
+// cutting each block_k tile into K/V tiles of 64 rows (float32) or 128 or
+// 64 (bfloat16). Masked tiles cost
+// neither loads nor flops, as on the TPU where the compressed grid never
+// visits them. kmap and counts are an int32 device array each; a block reads
+// its own row of them (the TPU kernel's scalar prefetch). Q, K, V and O are
+// read and written in place through their (batch, row, head) strides, so
+// [b, s, h, d] and a transposed [b, h, s, d] both need no copy. Head dims
+// 8..128 in steps of 8 run on the D = 64 or D = 128 build.
+//
+// bfloat16 inputs take block_sparse_fwd_wgmma: the flash forward's design
+// (flash_attention.cu), whose consumer loop (fwd_consume in
+// flash_common.cuh) it shares, schedule included. A producer warpgroup's
+// first thread issues the TMA loads: the block's Q tiles once, then the
+// active K and V tiles through a ring of 3 stages; the tensor maps are
+// built from the strides, with an inner extent of d, so TMA zero-fills
+// loads past d and clips the stores. Every score of an active tile counts,
+// so no position is checked. A one-dimensional grid runs one head's Q
+// blocks together, so that its K and V stay in L2. K/V tiles are 128 rows
+// where block_k allows, else 64.
+//   * A block of two consumer warpgroups owns 128 Q rows, which lie in one
+//     pattern row when block_q is a multiple of 128. When block_q is an odd
+//     multiple of 64 a 128-row block would span two pattern rows, so such
+//     patterns take a build of one consumer warpgroup and 64-row blocks
+//     (template argument kWGs 1; no setmaxnreg, no ping-pong), where each
+//     K/V tile serves half as many rows.
+//   * At d = 64 the softmax's exponentials (one per score, 16 a clock on an
+//     SM) cost as much as the products, so the kernel sits further from its
+//     tensor-core bound than the flash forward at d = 128.
+//
+// float32 inputs take block_sparse_fwd_kernel, on plain float32 FMAs (TF32
+// tensor cores would hold about 1e-3 relative): one block of 256 threads
+// per (64-row Q tile, batch * head); loads past d are zero-filled, so they
+// add nothing to the scores or the output, and stores past d are skipped;
+// 85 KB of shared memory at D = 128 (the scaled Q tile, one K-or-V tile,
+// the probabilities), so two blocks fit on an SM.
 #include "flash_common.cuh"
 
 namespace {
@@ -140,6 +159,89 @@ block_sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <int D, int kWGs, int kN>
+__global__ void __launch_bounds__(128 * (1 + kWGs), 1)
+block_sparse_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_o,
+                       const int* __restrict__ kmap,
+                       const int* __restrict__ counts,
+                       const int* __restrict__ order, int h, int s,
+                       int n_tiles_max, int block_q, int block_k,
+                       float scale) {
+  using namespace wg;
+  using L = FwdLayout<D, kNoMask, false, kWGs, kN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1k(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* qbar = empty + L::kStages;
+
+  // one head's Q blocks run together, so that its K and V stay in L2, the
+  // pattern rows with the most active tiles first (`order`), so that the
+  // grid does not end on a long one
+  const int n_qb = s / (kWGs * kRows);
+  const int per_row = block_q / (kWGs * kRows);  // blocks a pattern row
+  const int bh = blockIdx.x / n_qb;  // batch * h + head
+  const int b = bh / h, hh = bh % h;
+  const int j = blockIdx.x % n_qb;
+  const int qi = order[j / per_row];  // the pattern row of this block
+  const int q0 = qi * block_q + j % per_row * kWGs * kRows;
+  const int subs = block_k / kN;
+  const int n_tiles = counts[qi] * subs;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < L::kStages; ++i) {
+      hopper::mbar_init(&full[i], 1);
+      hopper::mbar_init(&empty[i], 4 * kWGs);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // (with one consumer warpgroup every thread may hold 255 registers)
+  if (threadIdx.x < 128) {  // producer
+    if constexpr (kWGs == 2) hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x != 0) return;
+    hopper::mbar_arrive_expect_tx(qbar, kWGs * L::kTile);
+    for (int w = 0; w < kWGs; ++w)
+      load_rows<D, kRows>(smem + L::kQ + w * L::kTile, &tm_q, qbar, hh,
+                          q0 + kRows * w, b);
+    const int* row = kmap + static_cast<size_t>(qi) * n_tiles_max;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = row[t / subs] * block_k + (t % subs) * kN;
+      const int st = t % L::kStages;
+      uint8_t* stage = smem + L::kStage0 + st * L::kStageBytes;
+      hopper::mbar_wait(&empty[st], ((t / L::kStages) & 1) ^ 1);
+      hopper::mbar_arrive_expect_tx(&full[st], 2 * L::kKVTile);
+      load_rows<D, kN>(stage, &tm_k, &full[st], hh, k0, b);
+      load_rows<D, kN>(stage + L::kKVTile, &tm_v, &full[st], hh, k0, b);
+    }
+    return;
+  }
+
+  // consumers: warpgroup cw owns Q rows row0 = q0 + 64 cw ..
+  if constexpr (kWGs == 2) hopper::setmaxnreg_inc<kConsumerRegs>();
+  const int cw = (threadIdx.x - 128) / 128;
+  const int row0 = q0 + kRows * cw;
+  uint8_t* sQ = smem + L::kQ + cw * L::kTile;
+  auto k0_of = [](int) { return 0; };  // (positions are never checked)
+  auto no_mask = [](const uint8_t*, int, int, int, int) {
+    return make_float2(0.f, 0.f);
+  };
+  float acc[D / 2], m[2], l[2];
+  hopper::mbar_wait(qbar, 0);
+  // products overlapping the softmax; the two warpgroups taking turns
+  fwd_consume<D, kN, kNoMask, true, kWGs == 2>(
+      sQ, smem + L::kStage0, L::kStageBytes, L::kStages, L::kKVTile, full,
+      empty, n_tiles, n_tiles, n_tiles, row0, s, false, scale, cw, k0_of,
+      no_mask, acc, m, l);
+  // O = acc / max(l, 1e-20): exactly 0 for an empty row
+  store_o<D>(acc, l, sQ, &tm_o, cw, hh, row0, b, true);
+}
+
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o,
            const int* kmap, const int* counts, int batch, int s, int h, int d,
@@ -158,6 +260,25 @@ int launch(const void* q, const void* k, const void* v, void* o,
   RETURN_LAUNCH_ERROR();
 }
 
+template <int D, int kWGs, int kN>
+int launch_wgmma_bs(const void* q, const void* k, const void* v, void* o,
+                    const int* kmap, const int* counts, const int* order,
+                    int batch, int s, int h, int d, int n_tiles_max,
+                    int block_q, int block_k, Strides qs, Strides os,
+                    Strides ks, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, to;
+  if (!rows_map(&tq, q, batch, s, h, d, qs.b, qs.s, qs.h) ||
+      !rows_map(&tk, k, batch, s, h, d, ks.b, ks.s, ks.h) ||
+      !rows_map(&tv, v, batch, s, h, d, ks.b, ks.s, ks.h) ||
+      !rows_map(&to, o, batch, s, h, d, os.b, os.s, os.h))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(batch * h * (s / (kWGs * wg::kRows)));
+  return launch_wgmma(block_sparse_fwd_wgmma<D, kWGs, kN>,
+                      wg::FwdLayout<D, kNoMask, false, kWGs, kN>::kBytes, grid,
+                      128 * (1 + kWGs), stream, tq, tk, tv, to, kmap, counts,
+                      order, h, s, n_tiles_max, block_q, block_k, scale);
+}
+
 }  // namespace
 
 DEFINE_ERROR_STRING()
@@ -165,19 +286,24 @@ DEFINE_ERROR_STRING()
 // q, o, k, v: [batch, s, h, d] of `dtype` with element strides (batch,
 // row, head) qs*, os*, ks* (k and v share theirs); the last dimension
 // contiguous, every stride a multiple of 16 bytes, bases 16-byte aligned. kmap:
-// [s / block_q, n_tiles_max] int32 and counts: [s / block_q] int32 on the
-// device. block_q and block_k are multiples of 64 dividing s; d is a
-// multiple of 8 up to 128. Launches on `stream`, allocates nothing, does
-// not synchronise.
+// [s / block_q, n_tiles_max] int32, counts: [s / block_q] int32 and order:
+// the pattern rows by falling count, [s / block_q] int32, on the device
+// (the float32 build takes no order). block_q and block_k are multiples of
+// 64 dividing s; d is a
+// multiple of 8 up to 128. bfloat16 takes the wgmma kernel (64-row blocks
+// when block_q is an odd multiple of 64), float32 the FMA kernel. Launches
+// on `stream`, allocates nothing, does not synchronise.
 extern "C" int block_sparse_attention_fwd(
     const void* q, const void* k, const void* v, void* o, const void* kmap,
-    const void* counts, int batch, int s, int h, int d, int n_tiles_max,
+    const void* counts, const void* order, int batch, int s, int h, int d,
+    int n_tiles_max,
     int block_q, int block_k, long long qsb, long long qss, long long qsh,
     long long osb, long long oss, long long osh, long long ksb, long long kss,
     long long ksh, float scale, int dtype, void* stream) {
   const Strides qs{qsb, qss, qsh}, os{osb, oss, osh}, ks{ksb, kss, ksh};
   const int* km = static_cast<const int*>(kmap);
   const int* cn = static_cast<const int*>(counts);
+  const int* od = static_cast<const int*>(order);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d <= 0 || d > 128 || d % 8 || block_q % kBlockM || block_k % kBlockN ||
       s % block_q || s % block_k)
@@ -190,12 +316,41 @@ extern "C" int block_sparse_attention_fwd(
                 : launch<float, 64>(q, k, v, o, km, cn, batch, s, h, d,
                                     n_tiles_max, block_q, block_k, qs, os,
                                     ks, scale, st);
-  if (dtype == kBFloat16)
-    return wide ? launch<__nv_bfloat16, 128>(q, k, v, o, km, cn, batch, s, h,
-                                             d, n_tiles_max, block_q, block_k,
-                                             qs, os, ks, scale, st)
-                : launch<__nv_bfloat16, 64>(q, k, v, o, km, cn, batch, s, h,
-                                            d, n_tiles_max, block_q, block_k,
-                                            qs, os, ks, scale, st);
+  if (dtype == kBFloat16) {
+    auto go = [&](auto dim, auto wgs, auto rows) {
+      return launch_wgmma_bs<decltype(dim)::value, decltype(wgs)::value,
+                             decltype(rows)::value>(
+          q, k, v, o, km, cn, od, batch, s, h, d, n_tiles_max, block_q,
+          block_k, qs, os, ks, scale, st);
+    };
+    auto by_rows = [&](auto dim, auto wgs) {
+      return block_k % 128 == 0 ? go(dim, wgs, Int<128>{})
+                                : go(dim, wgs, Int<64>{});
+    };
+    auto by_wgs = [&](auto dim) {
+      return block_q % 128 == 0 ? by_rows(dim, Int<2>{})
+                                : by_rows(dim, Int<1>{});
+    };
+    return wide ? by_wgs(Int<128>{}) : by_wgs(Int<64>{});
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory (bytes) of the bf16 build for head dim D (64 or
+// 128), kWGs consumer warpgroups (1 or 2) and K/V tiles of kN rows (64 or
+// 128).
+extern "C" int block_sparse_attention_fwd_wgmma_smem(int d, int wgs,
+                                                     int kn) {
+  auto bytes = [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    using wg::FwdLayout;
+    if (wgs == 2)
+      return kn == 128 ? FwdLayout<D, kNoMask, false, 2, 128>::kBytes
+                       : FwdLayout<D, kNoMask, false, 2, 64>::kBytes;
+    return kn == 128 ? FwdLayout<D, kNoMask, false, 1, 128>::kBytes
+                     : FwdLayout<D, kNoMask, false, 1, 64>::kBytes;
+  };
+  if (d == 64) return bytes(Int<64>{});
+  if (d == 128) return bytes(Int<128>{});
+  return -1;
 }

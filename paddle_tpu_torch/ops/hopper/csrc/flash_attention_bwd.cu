@@ -16,7 +16,7 @@
 //
 // bfloat16 inputs (the training path) take flash_bwd_dq_wgmma and
 // flash_bwd_dkv_wgmma: bf16 wgmma products with float32 accumulators, fed
-// by TMA (hopper_mma.cuh holds the building blocks).
+// by TMA (hopper_mma.cuh and flash_common.cuh hold the building blocks).
 //   * Blocks of 384 threads: one producer warpgroup (its first warp issues
 //     the TMA loads; setmaxnreg moves its registers to the others: 24 and
 //     240 a thread) and two consumer warpgroups of 64 rows each. Tiles are
@@ -96,7 +96,6 @@
 //   * No atomics: every output element is written by one block after a
 //     fixed-order sum, so two launches give identical bits.
 #include "flash_common.cuh"
-#include "hopper_mma.cuh"
 
 namespace {
 
@@ -334,30 +333,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 namespace wg {
 
-using bf16 = __nv_bfloat16;
-constexpr int kThreads = 384;        // producer warpgroup + 2 consumers
-constexpr int kConsumerWarps = 8;    // arrivals that free a ring stage
-constexpr int kRows = 64;            // rows of a box and of a warpgroup
-constexpr int kChunkBytes = kRows * 128;  // one 64-row, 64-column box
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;
-// mask windows (elements): dQ 128 q rows x 72 (64 k columns + 8 spare);
-// dK/dV 64 q rows x 132 float32 or 136 bf16 (128 k columns + 4 or 8
-// spare). TMA wants rows of a multiple of 16 bytes; these pitches also
-// keep each warp's reads on distinct banks.
-constexpr int kDqMaskPitch = 72;
+// dK/dV's mask window: 64 q rows x 132 float32 or 136 bf16 elements (128 k
+// columns + 4 or 8 spare), read transposed; the pitch keeps each warp's
+// reads on distinct banks.
 template <int kMask>
 constexpr int kDkvMaskPitch = kMask == kMaskF32 ? 132 : 136;
-
-constexpr int round1k(int bytes) { return (bytes + 1023) / 1024 * 1024; }
-// Three ring stages where a block's 232,448 bytes of shared memory hold
-// them (beside `fixed` bytes, the barriers and the alignment slack), else 2.
-constexpr int ring_stages(int fixed, int stage) {
-  return fixed + 3 * stage + 1024 + 64 <= 232448 ? 3 : 2;
-}
-template <int kMask>
-constexpr int kMaskElemBytes =
-    kMask == kNoMask ? 0 : kMask == kMaskF32 ? 4 : 2;
 
 // Shared memory (byte offsets from a 1024-byte aligned base). A "tile" is
 // 64 rows by D bf16: D / 64 boxes of kChunkBytes.
@@ -365,7 +345,7 @@ template <int D, int kMask, bool kWindow>
 struct DqLayout {
   static constexpr int kTile = D / 64 * kChunkBytes;
   static constexpr int kMaskBox =
-      kWindow ? 2 * kRows * kDqMaskPitch * kMaskElemBytes<kMask> : 0;
+      kWindow ? 2 * kRows * kMaskPitch * kMaskElemBytes<kMask> : 0;
   static constexpr int kQ = 0;                 // [2 warpgroups][tile]
   static constexpr int kDo = 2 * kTile;        // [2][tile]
   static constexpr int kStage0 = 4 * kTile;    // K, V, mask window
@@ -391,31 +371,6 @@ struct DkvLayout {
   static constexpr int kBytes = kBars + 8 * (2 * kStages + 1) + 1024;
 };
 
-__device__ __forceinline__ uint8_t* align_1k(uint8_t* p) {
-  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
-}
-
-// k16 step kk of a K-major tile: its box, then 32 bytes a step in the row.
-__device__ __forceinline__ uint64_t k_major(const uint8_t* tile, int kk) {
-  return hopper::desc_k_major(tile + (kk / 4) * kChunkBytes + (kk % 4) * 32);
-}
-// k16 step kk of an MN-major tile: 16 rows (2048 bytes) a step.
-__device__ __forceinline__ uint64_t mn_major(const uint8_t* tile, int kk) {
-  return hopper::desc_mn_major(tile + kk * 2048, kChunkBytes);
-}
-
-// Two adjacent mask elements (c even) of a window in shared memory.
-template <int kMask>
-__device__ __forceinline__ float2 window_pair(const uint8_t* win, int pitch,
-                                              int r, int c) {
-  if constexpr (kMask == kMaskF32) {
-    return *reinterpret_cast<const float2*>(
-        reinterpret_cast<const float*>(win) + r * pitch + c);
-  } else {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-        reinterpret_cast<const bf16*>(win) + r * pitch + c));
-  }
-}
 template <int kMask>
 __device__ __forceinline__ float window_at(const uint8_t* win, int pitch,
                                            int r, int c) {
@@ -424,14 +379,6 @@ __device__ __forceinline__ float window_at(const uint8_t* win, int pitch,
   } else {
     return __bfloat162float(reinterpret_cast<const bf16*>(win)[r * pitch + c]);
   }
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // P = exp(S scale + mask - LSE) from a raw score. `lse2` is LSE log2(e) and
@@ -458,25 +405,6 @@ __device__ __forceinline__ float mask_load(const void* p, int idx) {
     return __ldg(static_cast<const float*>(p) + idx);
   else
     return __bfloat162float(static_cast<const bf16*>(p)[idx]);
-}
-
-// Round a warpgroup's float32 [64 x D] accumulator (times `mul`) to bf16
-// into a tile of D / 64 swizzled boxes, for a TMA store.
-template <int D>
-__device__ __forceinline__ void acc_to_tile(const float (&acc)[D / 2],
-                                            float mul, uint8_t* tile,
-                                            int warp, int lane) {
-  const int g = lane / 4, tq = lane % 4;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = 16 * warp + g + 8 * i, c = 8 * j + 2 * tq;
-      *reinterpret_cast<uint32_t*>(tile + (c / 64) * kChunkBytes +
-                                   hopper::sw128_offset(r, c % 64)) =
-          hopper::pack_bf16(acc[4 * j + 2 * i] * mul,
-                            acc[4 * j + 2 * i + 1] * mul);
-    }
 }
 
 }  // namespace wg
@@ -616,13 +544,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
             const int row = q0 + row_l + 8 * i, c = 8 * j + 2 * tq;
             float2 m = make_float2(0.f, 0.f);
             if constexpr (kWindow) {
-              m = window_pair<kMask>(win, kDqMaskPitch, row_l + 8 * i, c);
+              m = window_pair<kMask>(win, kMaskPitch, row_l + 8 * i, c);
             } else if constexpr (kMask != kNoMask) {
-              if (row < s) {
-                if (k0 + c < s) m.x = mask_at<kMask>(plane, s, row, k0 + c);
-                if (k0 + c + 1 < s)
-                  m.y = mask_at<kMask>(plane, s, row, k0 + c + 1);
-              }
+              m = global_pair<kMask>(plane, s, row, k0 + c);
             }
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
@@ -967,56 +891,6 @@ int launch_dkv_fma(const Args& a, void* dk, void* dv, cudaStream_t stream) {
   RETURN_LAUNCH_ERROR();
 }
 
-// A bf16 [batch, s, heads, d] tensor as the 4-D map (d, heads, s, batch)
-// with 64 x 1 x 64 x 1 boxes in the 128-byte swizzle: one box is 64 rows of
-// one head's 64-column chunk, and rows past s come back as zeros.
-bool rows_map(CUtensorMap* map, const void* base, int batch, int s,
-              int heads, int d) {
-  const uint64_t dims[4] = {static_cast<uint64_t>(d),
-                            static_cast<uint64_t>(heads),
-                            static_cast<uint64_t>(s),
-                            static_cast<uint64_t>(batch)};
-  const uint64_t row = 2ull * heads * d;
-  const uint64_t strides[3] = {2ull * d, row, row * s};
-  const uint32_t box[4] = {64, 1, wg::kRows, 1};
-  return hopper::encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base,
-                              dims, strides, box,
-                              CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
-// The mask [batch, mask_heads, s, s] as the 3-D map (s, s, planes) with
-// `cols` x `rows` x 1 boxes, unswizzled. Returns 1 if mapped, 0 if its rows
-// are not a multiple of 16 bytes (the kernel then reads global memory), or
-// -1 if the driver refuses it.
-template <int kMask>
-int mask_map(CUtensorMap* map, const Args& a, int cols, int rows) {
-  constexpr uint64_t kElem = wg::kMaskElemBytes<kMask>;
-  const uint64_t s = static_cast<uint64_t>(a.s);
-  if ((s * kElem) % 16 != 0) return 0;
-  const uint64_t dims[3] = {s, s,
-                            static_cast<uint64_t>(a.batch) * a.mask_heads};
-  const uint64_t strides[2] = {s * kElem, s * s * kElem};
-  const uint32_t box[3] = {static_cast<uint32_t>(cols),
-                           static_cast<uint32_t>(rows), 1};
-  const CUtensorMapDataType type = kMask == kMaskF32
-                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  return hopper::encode_tiled(map, type, 3, a.mask, dims, strides, box,
-                              CU_TENSOR_MAP_SWIZZLE_NONE)
-             ? 1
-             : -1;
-}
-
-template <typename Kernel, typename... KernelArgs>
-int launch_wgmma(Kernel kernel, int bytes, dim3 grid, cudaStream_t stream,
-                 KernelArgs... args) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, wg::kThreads, bytes, stream>>>(args...);
-  RETURN_LAUNCH_ERROR();
-}
-
 // The build that takes the mask as TMA windows when its rows can be
 // mapped, else the one that reads it from global memory.
 template <int D, int kMask>
@@ -1032,19 +906,20 @@ int launch_dq_wgmma(const Args& a, void* dq, cudaStream_t stream) {
                   (a.s + 2 * wg::kRows - 1) / (2 * wg::kRows));
   if constexpr (kMask != kNoMask) {
     const int window =
-        mask_map<kMask>(&tmask, a, wg::kDqMaskPitch, 2 * wg::kRows);
+        mask_map<kMask>(&tmask, a.mask, a.batch, a.mask_heads, a.s,
+                        wg::kMaskPitch, 2 * wg::kRows);
     if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
     if (window)
       return launch_wgmma(flash_bwd_dq_wgmma<D, kMask, true>,
-                          wg::DqLayout<D, kMask, true>::kBytes, grid, stream,
-                          tq, tk, tv, tdo, tmask, tdq, a.lse, a.delta,
-                          a.mask, a.s, a.hq, a.hkv, a.mask_heads,
-                          static_cast<int>(a.causal), a.scale);
+                          wg::DqLayout<D, kMask, true>::kBytes, grid,
+                          wg::kThreads, stream, tq, tk, tv, tdo, tmask, tdq,
+                          a.lse, a.delta, a.mask, a.s, a.hq, a.hkv,
+                          a.mask_heads, static_cast<int>(a.causal), a.scale);
   }
   return launch_wgmma(flash_bwd_dq_wgmma<D, kMask, false>,
-                      wg::DqLayout<D, kMask, false>::kBytes, grid, stream,
-                      tq, tk, tv, tdo, tmask, tdq, a.lse, a.delta, a.mask,
-                      a.s, a.hq, a.hkv, a.mask_heads,
+                      wg::DqLayout<D, kMask, false>::kBytes, grid,
+                      wg::kThreads, stream, tq, tk, tv, tdo, tmask, tdq,
+                      a.lse, a.delta, a.mask, a.s, a.hq, a.hkv, a.mask_heads,
                       static_cast<int>(a.causal), a.scale);
 }
 
@@ -1063,19 +938,20 @@ int launch_dkv_wgmma(const Args& a, void* dk, void* dv,
                   (a.s + 2 * wg::kRows - 1) / (2 * wg::kRows));
   if constexpr (kMask != kNoMask) {
     const int window =
-        mask_map<kMask>(&tmask, a, wg::kDkvMaskPitch<kMask>, wg::kRows);
+        mask_map<kMask>(&tmask, a.mask, a.batch, a.mask_heads, a.s,
+                        wg::kDkvMaskPitch<kMask>, wg::kRows);
     if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
     if (window)
       return launch_wgmma(flash_bwd_dkv_wgmma<D, kMask, true>,
                           wg::DkvLayout<D, kMask, true>::kBytes, grid,
-                          stream, tq, tk, tv, tdo, tmask, tdk, tdv, a.lse,
-                          a.delta, a.mask, a.s, a.hq, a.hkv, a.mask_heads,
-                          static_cast<int>(a.causal), a.scale);
+                          wg::kThreads, stream, tq, tk, tv, tdo, tmask, tdk,
+                          tdv, a.lse, a.delta, a.mask, a.s, a.hq, a.hkv,
+                          a.mask_heads, static_cast<int>(a.causal), a.scale);
   }
   return launch_wgmma(flash_bwd_dkv_wgmma<D, kMask, false>,
-                      wg::DkvLayout<D, kMask, false>::kBytes, grid, stream,
-                      tq, tk, tv, tdo, tmask, tdk, tdv, a.lse, a.delta,
-                      a.mask, a.s, a.hq, a.hkv, a.mask_heads,
+                      wg::DkvLayout<D, kMask, false>::kBytes, grid,
+                      wg::kThreads, stream, tq, tk, tv, tdo, tmask, tdk, tdv,
+                      a.lse, a.delta, a.mask, a.s, a.hq, a.hkv, a.mask_heads,
                       static_cast<int>(a.causal), a.scale);
 }
 

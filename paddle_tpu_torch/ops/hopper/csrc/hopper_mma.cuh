@@ -6,7 +6,8 @@
 //     N = 64 or 128, A from shared memory (SS) or from registers (RS), and
 //     their fence, commit and wait;
 //   * mbarriers (init, arrive, arrive with an expected transaction count,
-//     wait on a phase's parity), setmaxnreg, named barriers;
+//     wait on a phase's parity), setmaxnreg, named barriers (sync and
+//     arrive);
 //   * 4-byte cp.async copies with zero fill that arrive on an mbarrier;
 //   * TMA: 3-D and 4-D tensor loads into shared memory and 4-D stores out of
 //     it, and the host-side encoding of a tensor map.
@@ -191,9 +192,13 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
 
-// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+// Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads: wait
+// there, or only arrive (the warps that wait complete it).
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

@@ -1,20 +1,26 @@
-"""Flash attention backward kernel times of two checkouts of the port, on
-one Hopper card.
+"""Attention kernel times of two checkouts of the port, on one Hopper card.
 
-    python3 -m paddle_tpu_torch.tools.bwd_ab --trees PARENT CHANGE \
+    python3 -m paddle_tpu_torch.tools.attn_ab --trees PARENT CHANGE \
         [--pairs 2] [--seed 0]
 
 Two versions of a kernel are compared only within one call on one card
 (cards differ in power limit and neighbours). This script starts one
 process per run, the trees in turns (A B, then B A, ...), each importing
 ``paddle_tpu_torch`` from its own checkout and building its own kernels.
-Each process times the dQ and the dK/dV kernel at the train phase's shape
-of ``chip_smoke.py``, q, k, v [4, 2048, 32, 128] bf16, causal and then
-non-causal under a float32 packed-document mask [4, 1, 2048, 2048]
-(documents of 256-1024 tokens from --seed), with CUDA events around each
-call after an L2 flush, median of 10 (``chip_smoke.time_ms``). It prints
-one JSON line per run, then a summary: each tree's medians over its runs
-and the ratio of the first tree's to the second's.
+Each process times, with CUDA events around each call after an L2 flush,
+median of 10 (``chip_smoke.time_ms``), at ``chip_smoke.py``'s shapes:
+
+- the flash forward at the serve shape, q, k, v [4, 512, 32, 128] bf16
+  causal (``fwd_serve``), and at the train shape [4, 2048, 32, 128] bf16
+  causal (``fwd_causal``) and non-causal under a float32 packed-document
+  mask [4, 1, 2048, 2048] (``fwd_masked``; documents of 256-1024 tokens
+  from --seed);
+- the dQ and the dK/dV kernels at the train shape, causal and masked;
+- the block-sparse forward at q, k, v [4, 4096, 12, 64] bf16 under the
+  BigBird-base tile pattern (``chip_smoke.bigbird_tiles``, from --seed).
+
+It prints one JSON line per run, then a summary: each tree's medians over
+its runs and the ratio of the first tree's to the second's.
 """
 from __future__ import annotations
 
@@ -69,26 +75,52 @@ def packed_doc_mask(seed):
     return mask.masked_fill_(~keep[:, None], -1e9)
 
 
+def bigbird_tiles(nb, seed):
+    """BigBird-base's tile pattern (as ``chip_smoke.bigbird_tiles``)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    bm = np.zeros((nb, nb), bool)
+    bm[[0, -1], :] = True
+    bm[:, [0, -1]] = True
+    for r in range(1, nb - 1):
+        bm[r, r - 1:r + 2] = True
+        bm[r, rng.choice(np.flatnonzero(~bm[r]), 3, replace=False)] = True
+    return bm
+
+
 def worker(seed):
     import torch
 
     import paddle_tpu_torch
-    from paddle_tpu_torch.ops.hopper import (flash_attention,
+    from paddle_tpu_torch.ops.hopper import (block_sparse_attention_fwd,
+                                             flash_attention,
                                              flash_attention_bwd_dkv,
                                              flash_attention_bwd_dq)
     from paddle_tpu_torch.ops.hopper.flash_attention import _delta
+    bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, dout = (torch.randn(B, S, H, D, generator=gen, device="cuda")
-                     .to(torch.bfloat16) for _ in range(4))
     rec = {"package": os.path.dirname(paddle_tpu_torch.__file__)}
+    q, k, v = (torch.randn(B, 512, H, D, generator=gen, device="cuda")
+               .to(bf16) for _ in range(3))
+    rec["fwd_serve_ms"] = time_ms(lambda: flash_attention(q, k, v, True))
+    q, k, v, dout = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+                     .to(bf16) for _ in range(4))
     for label, causal, mask in (("causal", True, None),
                                 ("masked", False, packed_doc_mask(seed))):
+        rec[f"fwd_{label}_ms"] = time_ms(
+            lambda: flash_attention(q, k, v, causal, mask))
         out, lse = flash_attention(q, k, v, causal, mask)
         delta = _delta(out, dout)
         rec[f"{label}_dq_ms"] = time_ms(lambda: flash_attention_bwd_dq(
             q, k, v, dout, lse, delta, causal, mask))
         rec[f"{label}_dkv_ms"] = time_ms(lambda: flash_attention_bwd_dkv(
             q, k, v, dout, lse, delta, causal, mask))
+    del q, k, v, dout, out, lse, delta
+    bm = bigbird_tiles(32, seed)
+    q, k, v = (torch.randn(4, 4096, 12, 64, generator=gen, device="cuda")
+               .to(bf16) for _ in range(3))
+    rec["block_sparse_ms"] = time_ms(
+        lambda: block_sparse_attention_fwd(q, k, v, bm))
     print(json.dumps(rec), flush=True)
 
 
@@ -100,10 +132,10 @@ def run_tree(tree, seed):
         cwd=tree, env=env, capture_output=True, text=True, timeout=900)
     if out.returncode != 0:
         sys.stderr.write(out.stderr[-4000:])
-        raise SystemExit(f"bwd_ab: the run in {tree} failed")
+        raise SystemExit(f"attn_ab: the run in {tree} failed")
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     if not rec["package"].startswith(tree + os.sep):
-        raise SystemExit(f"bwd_ab: {tree} imported {rec['package']}")
+        raise SystemExit(f"attn_ab: {tree} imported {rec['package']}")
     return rec
 
 
