@@ -21,7 +21,13 @@ Phases, each printing JSON lines (any failure exits non-zero):
    forward at both, and the masked flash kernels at the packed-document
    training shape) beside its plain version, one PyTorch library call, and
    the card's bound for the same work; the whole flash backward (delta,
-   dQ, dK/dV) is timed beside SDPA's backward, causal and masked.
+   dQ, dK/dV) is timed beside SDPA's backward, causal and masked. The
+   flash kernels' dropout builds: cases against the plain versions with
+   the same seed (bf16 and float32, causal or not, 12:12 and 32:8 heads,
+   s 512, 300 and 2048, d 64 and 128, with and without a float32 mask), a
+   second launch bit for bit, the keep mask's share at GPT-2's shape and
+   the kernels' own masks read back row by row, and timings at GPT-2's
+   shape beside the same kernels without dropout and SDPA with dropout.
 3. width: Llama-2-7B width (bf16, 2 layers, random weights from --seed),
    one 128-token prompt, prefill on the card (kernels) against the same
    weights in float32 on the CPU (plain versions).
@@ -30,6 +36,12 @@ Phases, each printing JSON lines (any failure exits non-zero):
    (float32, plain versions).
 3c. train_width_masked: the same check with a packed-document mask (the
    masked flash kernels).
+3d. routing: attention calls the flash kernels do not take (Llama's tiny
+   config at head dim 16, float16) complete on the dense route with its
+   warning, and strided q/k/v take the kernels as copies.
+3e. gpt2_width: GPT-2 124M (12 layers), loss and every grad of one 4 x 512
+   batch with attention dropout 0.1, card (bf16 O2, the dropout builds)
+   against the CPU (float32, plain versions, the same hash mask).
 4. serve: Llama-2-7B (bf16, all 32 layers) serves 4
    requests of 512 prompt tokens and 32 greedy new tokens through
    LlamaForCausalLM.generate; the launch counts prove the path ran the
@@ -48,6 +60,12 @@ Phases, each printing JSON lines (any failure exits non-zero):
    float32 [4, 1, 2048, 2048] block-diagonal causal mask (document lengths
    drawn from --seed); the launch counts of one step prove the masked
    flash kernels ran. The same reports and checks as train.
+5c. gpt2_train: benchmarks/bench_gpt2.py's path at GPT-2 124M (8 x 512
+   tokens, dropout 0.1, AdamW with float32 masters, O2 bf16, TrainStep):
+   2 warm steps and 10 timed; the launch counts of one step prove the
+   flash kernels' dropout builds ran (12 each) and AdamW's 148, its
+   profile that attention ran the bf16 tensor-core dropout builds only.
+   The same reports as train.
 6. sparse: F.sparse_attention at BERT-base width (12 heads x 64) and
    BigBird-base length (4096 tokens; 2 global, 3 window and 3 random
    128-token tiles) from an int32 CSR built from --seed: one block-sparse
@@ -218,20 +236,31 @@ def phase_device():
           "cuda": torch.version.cuda, "nvcc": nvcc_version,
           "kernel_build_s": build_s, "ptxas": ptxas,
           "ptxas_wgmma": report})
-    # the forward and block-sparse tensor-core builds (all but the
-    # forward's global-read mask builds) must neither spill nor serialise
-    # their products
-    def faulty(note):
-        return "serialized" in note or any(
-            int(n) for n in re.findall(r"(\d+) bytes spill", note))
-
+    # the forward, block-sparse and dropout tensor-core builds must neither
+    # spill nor serialise their products
     bad = {n: notes for n, notes in report.items()
-           if (n.startswith("block_sparse") or (n.startswith("flash_fwd")
-                                                and not re.search(
-                                                    r", [12], 0>$", n)))
-           and any(faulty(x) for x in notes)}
+           if held_to_no_spill(n) and any(faulty(x) for x in notes)}
     if bad:
         fail(f"wgmma builds spill or serialise: {bad}")
+
+
+def faulty(note):
+    """Whether a ptxas note reports a spill or serialised wgmma."""
+    return "serialized" in note or any(
+        int(n) for n in re.findall(r"(\d+) bytes spill", note))
+
+
+def held_to_no_spill(build):
+    """Whether a tensor-core build (``name<D, mask code, window, dropout>``,
+    block-sparse ``name<D, warpgroups, tile rows>``) must neither spill nor
+    serialise: every block-sparse and forward build and every dropout
+    build, except the flash builds that read a mask from global memory
+    (mask code 1 or 2, no window)."""
+    if build.startswith("block_sparse"):
+        return True
+    if re.search(r", [12], 0, [01]>$", build):
+        return False
+    return build.startswith("flash_fwd") or build.endswith(", 1>")
 
 
 # source -> the C entry of its wgmma builds' shared-memory query
@@ -247,10 +276,11 @@ WGMMA_KERNELS = ("flash_fwd_wgmma|flash_bwd_dq_wgmma|flash_bwd_dkv_wgmma|"
 def wgmma_report(logs):
     """Per build of the bf16 tensor-core kernels (flash_fwd_wgmma,
     flash_bwd_dq_wgmma and flash_bwd_dkv_wgmma, template <D, mask code,
-    mask as TMA windows>; block_sparse_fwd_wgmma, template <D, consumer
-    warpgroups>): ptxas's registers and spill lines and any note that it
-    serialised the wgmma products, and the dynamic shared memory the launch
-    asks for (ptxas reports static shared memory only)."""
+    mask as TMA windows, dropout>; block_sparse_fwd_wgmma, template <D,
+    consumer warpgroups, K/V tile rows>): ptxas's registers and spill lines
+    and any note that it serialised the wgmma products, and the dynamic
+    shared memory the launch asks for (ptxas reports static shared memory
+    only)."""
     from paddle_tpu_torch.ops.hopper import _build
     # the wrappers' signatures: the first load of a library sets them (the
     # package's names flash_attention and block_sparse_attention are the
@@ -523,7 +553,8 @@ def phase_kernels(seed):
     for rec in records:
         if rec["name"] in masked:
             rec["masked"] = masked[rec["name"]]
-    return records + [block_sparse_kernels(gen, seed)]
+    return records + [block_sparse_kernels(gen, seed)] + \
+        dropout_kernels(gen, seed)
 
 
 def train_kernels(gen):
@@ -957,6 +988,297 @@ def block_sparse_kernels(gen, seed):
     return rec
 
 
+DROPOUT_P = 0.1          # GPT-2's (paddle_tpu/models/gpt.py GPT2Config)
+# integer operations of the keep mask a score: row ^ column, three
+# shift-xors (two each), two multiplies, the column's add, the compare and
+# the select
+DROPOUT_INT_OPS = 12
+
+
+def dropout_case(gen, dtype, causal, hq, hkv, s, d, b, masked, p, seed):
+    """The dropout builds of the forward and both backward kernels against
+    the plain versions with the same rate and seed (under a float32
+    additive mask with `masked`); a second launch of each, bit for bit;
+    the dropout counters, not the others, count the launches."""
+    from paddle_tpu_torch.ops.hopper import (flash_attention,
+                                             flash_attention_bwd,
+                                             flash_attention_bwd_plain,
+                                             flash_attention_plain,
+                                             launch_counts)
+    q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    dout = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(dtype)
+    mask = None
+    if masked:
+        shape = (b, 1, s, s)
+        mask = torch.where(
+            torch.rand(*shape, generator=gen, device="cuda") < 0.3, -1e9,
+            torch.randn(*shape, generator=gen, device="cuda"))
+    before = launch_counts()
+    out, lse = flash_attention(q, k, v, causal, mask, p, seed)
+    again = flash_attention(q, k, v, causal, mask, p, seed)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, causal, mask, p, seed)
+    got2 = flash_attention_bwd(q, k, v, out, dout, lse, causal, mask, p,
+                               seed)
+    torch.cuda.synchronize()
+    counted = {n: c - before[n] for n, c in launch_counts().items()
+               if c != before[n]}
+    ref, ref_lse = flash_attention_plain(q, k, v, causal, mask, p, seed)
+    ref_g = flash_attention_bwd_plain(q, k, v, out, dout, lse, causal, mask,
+                                      p, seed)
+    rec = {"kernel": "flash_attention_dropout", "dtype": str(dtype)[6:],
+           "causal": causal, "heads": [hq, hkv], "s": s, "d": d, "b": b,
+           "mask": masked, "p": p, "seed": seed,
+           "max_abs_err": max_err(out, ref), "tol": tolerance(ref, dtype),
+           "lse_max_abs_err": max_err(lse, ref_lse),
+           "lse_tol": tolerance(ref_lse, torch.float32),
+           "bit_identical": torch.equal(out, again[0]) and
+           torch.equal(lse, again[1]) and
+           all(torch.equal(a, c) for a, c in zip(got, got2)),
+           "launches": counted}
+    ok = rec["bit_identical"] and rec["max_abs_err"] <= rec["tol"] and \
+        rec["lse_max_abs_err"] <= rec["lse_tol"] and counted == {
+            "flash_attention_dropout": 2,
+            "flash_attention_bwd_dq_dropout": 2,
+            "flash_attention_bwd_dkv_dropout": 2}
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref_g):
+        rec[f"{name}_max_abs_err"] = max_err(a, r)
+        rec[f"{name}_tol"] = bwd_tolerance(r, dtype)
+        ok = ok and rec[f"{name}_max_abs_err"] <= rec[f"{name}_tol"]
+    emit(rec)
+    if not ok:
+        fail(f"flash attention with dropout disagrees with its plain "
+             f"version: {rec}")
+    return rec
+
+
+def dropout_keep_share(seed):
+    """The keep mask at GPT-2's attention shape, [8, 12, 512, 512]: its
+    kept share within 0.2 points of 1 - p; and the kernels' own masks, read
+    back through uniform attention (q = k = 0, v = 1, non-causal: a row's
+    output is its kept count times the scale over s), equal to it row by
+    row: exactly from the float32 build, within 1% from the bf16 one (its
+    P and output round to bf16)."""
+    from paddle_tpu_torch.ops.hopper import flash_attention, keep_mask
+    from paddle_tpu_torch.ops.hopper.flash_attention import dropout_scale
+    b, s, h, d, p = 8, 512, 12, 64, DROPOUT_P
+    kept = keep_mask(b, h, s, seed, p, "cuda").sum(-1).float()  # [b, h, s]
+    rec = {"what": "dropout keep mask", "shape": [b, s, h, s], "p": p,
+           "kept_share": float(kept.sum()) / (b * h * s * s),
+           "share_tol": 0.002}
+    ok = abs(rec["kept_share"] - (1 - p)) <= rec["share_tol"]
+    for dtype in (torch.float32, torch.bfloat16):
+        z = torch.zeros(b, s, h, d, dtype=dtype, device="cuda")
+        out, _ = flash_attention(z, z, torch.ones_like(z), False, None, p,
+                                 seed)
+        counts = (out[..., 0].float() * s / dropout_scale(p)).transpose(1, 2)
+        err = float(((counts - kept).abs() / kept).max())
+        if dtype == torch.float32:
+            rec["float32_rows_equal"] = torch.equal(counts.round(), kept)
+            ok = ok and rec["float32_rows_equal"]
+        else:
+            rec["bfloat16_rows_max_rel_err"] = err
+            ok = ok and err <= 0.01
+        del z, out, counts
+    emit({"phase": "kernels", "dropout_keep_share": rec})
+    if not ok:
+        fail(f"dropout keep mask: {rec}")
+
+
+def dropout_kernels(gen, seed):
+    """The flash kernels' dropout builds: every case, the keep mask's share,
+    then the three kernels timed at GPT-2's training shape, q, k, v
+    [8, 512, 12, 64] bf16 causal, p = 0.1, beside the same kernels at
+    p = 0, their plain versions, SDPA with dropout_p = 0.1 (a yardstick of
+    time: its mask is another) and the card's bound. Returns the summary
+    line's three records."""
+    from paddle_tpu_torch.ops.hopper import (flash_attention,
+                                             flash_attention_bwd,
+                                             flash_attention_bwd_dkv,
+                                             flash_attention_bwd_dq,
+                                             flash_attention_bwd_plain,
+                                             flash_attention_plain)
+    from paddle_tpu_torch.ops.hopper.flash_attention import _delta
+    F = torch.nn.functional
+    bf16, f32 = torch.bfloat16, torch.float32
+    i = 0
+    for dtype in (bf16, f32):
+        for causal in (True, False):
+            for hq, hkv in ((12, 12), (32, 8)):
+                for s, d in ((512, 64), (300, 128), (2048, 128),
+                             (2048, 64)):
+                    if s == 2048 and d == 64 and hq == 32:
+                        continue
+                    dropout_case(gen, dtype, causal, hq, hkv, s, d,
+                                 1 if s == 2048 else 2, False, DROPOUT_P,
+                                 seed + i if i % 3 else -(seed + i + 1))
+                    i += 1
+            for s, d in ((512, 128), (300, 64)):     # under a float32 mask
+                dropout_case(gen, dtype, causal, 32, 8, s, d, 2, True, 0.3,
+                             seed + i)
+                i += 1
+    dropout_keep_share(seed)
+
+    b, s, h, d, p = 8, 512, 12, 64, DROPOUT_P
+    dseed = seed + 100
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=gen,
+                                 device="cuda").to(bf16) for _ in range(4))
+    out, lse = flash_attention(q, k, v, True, None, p, dseed)
+    ref, _ = flash_attention_plain(q, k, v, True, None, p, dseed)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, True, None, p, dseed)
+    ref_g = flash_attention_bwd_plain(q, k, v, out, dout, lse, True, None, p,
+                                      dseed)
+    torch.cuda.synchronize()
+    errs = {"flash_attention_dropout": (max_err(out, ref),
+                                        tolerance(ref, bf16)),
+            "flash_attention_bwd_dq_dropout": (
+                max_err(got[0], ref_g[0]), bwd_tolerance(ref_g[0], bf16)),
+            "flash_attention_bwd_dkv_dropout": (
+                max(max_err(got[1], ref_g[1]), max_err(got[2], ref_g[2])),
+                max(bwd_tolerance(ref_g[1], bf16),
+                    bwd_tolerance(ref_g[2], bf16)))}
+    if any(e > t for e, t in errs.values()):
+        fail(f"dropout kernels at GPT-2's shape: {errs}")
+    del ref, got, ref_g
+    delta = _delta(out, dout)
+    pairs = s * (s + 1) // 2
+    gemm = 2 * b * h * d * pairs             # one causal product
+    int_ops = DROPOUT_INT_OPS * b * h * pairs
+    io = q.numel() * q.element_size()
+    rows = 2 * b * h * s * 4                 # lse and delta
+
+    def drop_bound(nbytes, products):
+        """The larger of bytes over the memory's rate and the products at
+        the bf16 tensor-core rate plus the mask's integer operations at the
+        CUDA cores' 67 T/s, the card's float32 rate (the data sheet lists no
+        integer rate)."""
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = (products * gemm / H100_BF16_FLOPS
+                 + int_ops / H100_FP32_FLOPS) * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, dropout_p=p))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             dropout_p=p)
+    dot = dout.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True))
+    del lib_out, qt, kt, vt, dot
+    bwd_plain = time_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, out, dout, lse, True, None, p, dseed), 5)
+    shape = "q,k,v [8, 512, 12, 64] bf16 causal, dropout 0.1"
+    records = []
+    for name, line, src, fn, nbytes, products, plain_ms, lib_ms, note in (
+            ("flash_attention_dropout", 124, "flash_attention.cu",
+             lambda pp: flash_attention(q, k, v, True, None, pp, dseed),
+             4 * io + b * h * s * 4, 2,
+             time_ms(lambda: flash_attention_plain(q, k, v, True, None, p,
+                                                   dseed), 5),
+             lib_fwd, "F.scaled_dot_product_attention(dropout_p=0.1): "
+                      "another mask, timed as a yardstick"),
+            ("flash_attention_bwd_dq_dropout", 180, "flash_attention_bwd.cu",
+             lambda pp: flash_attention_bwd_dq(q, k, v, dout, lse, delta,
+                                               True, None, pp, dseed),
+             5 * io + rows, 3, bwd_plain, lib_bwd,
+             "backward of F.scaled_dot_product_attention(dropout_p=0.1), "
+             "dq, dk, dv together"),
+            ("flash_attention_bwd_dkv_dropout", 231,
+             "flash_attention_bwd.cu",
+             lambda pp: flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                                True, None, pp, dseed),
+             6 * io + rows, 4, bwd_plain, lib_bwd,
+             "backward of F.scaled_dot_product_attention(dropout_p=0.1), "
+             "dq, dk, dv together")):
+        b_ms, b_by = drop_bound(nbytes, products)
+        rec = {"name": name, "route": "cuda",
+               "source": f"paddle_tpu_torch/ops/hopper/csrc/{src}",
+               "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+               "shape": shape, "max_abs_err": errs[name][0],
+               "tol": errs[name][1], "ms": time_ms(lambda: fn(p)),
+               "no_dropout_ms": time_ms(lambda: fn(0.0)),
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": lib_ms, "library_note": note}
+        if "bwd" in name:
+            rec["plain_note"] = "the whole plain backward (dq, dk, dv)"
+        records.append(rec)
+        emit({"phase": "kernels", "timing": rec})
+    del q, k, v, dout, out, lse, delta
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_routing(seed):
+    """Attention calls the flash kernels do not take reach the dense route,
+    with its one-time warning, and never a kernel wrapper that raises:
+    Llama's tiny config (head dim 16, float32) trains one batch on the
+    card, a float16 call completes, and strided q, k, v (GPT-2's slices of
+    one projection) take the kernel as copies, forward and backward, with
+    dropout, equal to the call on contiguous copies."""
+    import warnings
+
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops.hopper import launch_counts, \
+        reset_launch_counts
+    PF._DENSE_ROUTE_SEEN.clear()
+    reset_launch_counts()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        model = LlamaForCausalLM(llama_tiny_config(), device="cuda",
+                                 generator=torch.Generator(device="cuda")
+                                 .manual_seed(seed))
+        gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+        ids = torch.randint(0, 128, (2, 32), generator=gen, device="cuda")
+        _, loss = model(ids, labels=ids)
+        loss.backward()
+        half = torch.randn(2, 64, 4, 64, generator=gen, device="cuda").half()
+        out16 = PF.scaled_dot_product_attention(half, half, half,
+                                                is_causal=True)
+        dense = launch_counts()
+        qkv = torch.randn(2, 256, 3, 12, 64, generator=gen,
+                          device="cuda").to(torch.bfloat16).requires_grad_()
+        g = torch.randn(2, 256, 12, 64, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        out = PF.scaled_dot_product_attention(
+            *qkv.unbind(2), is_causal=True, dropout_p=DROPOUT_P,
+            generator=torch.Generator().manual_seed(seed))
+        out.backward(g)
+        leaves = [t.detach().contiguous().requires_grad_()
+                  for t in qkv.unbind(2)]
+        ref = PF.scaled_dot_product_attention(
+            *leaves, is_causal=True, dropout_p=DROPOUT_P,
+            generator=torch.Generator().manual_seed(seed))
+        ref.backward(g)
+        torch.cuda.synchronize()
+    strided = {n: c - dense[n] for n, c in launch_counts().items()
+               if c != dense[n]}
+    reasons = sorted({str(w.message).split("(", 1)[-1].rstrip(")")
+                      for w in seen if "dense attention" in str(w.message)})
+    rec = {"phase": "routing", "llama_tiny_loss": float(loss.detach()),
+           "float16_finite": bool(torch.isfinite(out16).all()),
+           "dense_launches": {n: c for n, c in dense.items() if c},
+           "strided_launches": strided, "dense_reasons": reasons,
+           "strided_equal": torch.equal(out, ref) and torch.equal(
+               qkv.grad, torch.stack([t.grad for t in leaves], 2))}
+    emit(rec)
+    ok = (math.isfinite(rec["llama_tiny_loss"]) and rec["float16_finite"]
+          and not any(n.startswith("flash") for n in rec["dense_launches"])
+          and strided == {"flash_attention_dropout": 2,
+                          "flash_attention_bwd_dq_dropout": 2,
+                          "flash_attention_bwd_dkv_dropout": 2}
+          and rec["strided_equal"]
+          and any("head_dim 16" in r for r in reasons)
+          and any("float16" in r for r in reasons))
+    if not ok:
+        fail(f"attention routing: {rec}")
+
+
+# -- phase 3 -----------------------------------------------------------------
 # -- phase 3 -----------------------------------------------------------------
 
 def phase_width(seed):
@@ -1161,12 +1483,27 @@ def profile_one(fn, calls=1, attempts=3):
     return {"device_ms": sum(r[1] for r in rows) or "not measured",
             "attempts": attempt,
             "top": [[k[:60], round(ms, 4), n] for k, ms, n in rows[:10]],
+            # each flash build with its template arguments, and its records
+            "flash_builds": {m: sum(n for k, _, n in rows if m in k)
+                             for m in sorted({m for k, _, _ in rows
+                                              for m in re.findall(
+                                                  FLASH_BUILD, k)})},
             **{f"{what}_kernels": sorted({m for k, _, _ in rows
                                           for m in re.findall(pat, k)})
                for what, pat in (("flash_fwd", r"flash_fwd_\w+"),
                                  ("flash_bwd", r"flash_bwd_\w+"),
                                  ("block_sparse",
                                   r"block_sparse_fwd_\w+"))}}
+
+
+# a flash kernel's name with its template arguments in a profiler record
+FLASH_BUILD = r"flash_(?:fwd|bwd)_\w+<[^<>]*>"
+
+
+def dropout_build(build):
+    """Whether a profiled flash build (``name<D, mask, window, dropout>``)
+    is a dropout build: its last template argument is true."""
+    return build.rsplit(",", 1)[-1].strip(" >") in ("true", "1")
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1224,11 +1561,13 @@ def phase_train(seed, packed=False):
     losses = [float(x) for x in losses]
     profile = profile_one(lambda: step(ids, labels, mask))
 
-    expect = {"flash_attention": 2 * layers,
-              "flash_attention_bwd_dq": layers,
-              "flash_attention_bwd_dkv": layers,
-              "rms_norm": 4 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
-              "adamw": 9 * layers + 3, "block_sparse_attention": 0}
+    expect = dict.fromkeys(launches, 0)
+    expect.update({"flash_attention": 2 * layers,
+                   "flash_attention_bwd_dq": layers,
+                   "flash_attention_bwd_dkv": layers,
+                   "rms_norm": 4 * layers + 1,
+                   "rms_norm_bwd": 2 * layers + 1,
+                   "adamw": 9 * layers + 3})
     median_ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
     tokens_per_s = batch * seq / (median_ms / 1e3)
     # bench.py's model FLOPs: 6 P per token plus the attention terms
@@ -1414,6 +1753,167 @@ def phase_sparse(seed):
     return launches
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+def gpt2_model(device, seed, weights_seed):
+    """GPT-2 124M (gpt2_124m_config: dropout 0.1) on `device`, its weights
+    from a generator there seeded with `weights_seed`, its dropout
+    generators seeded with `seed`."""
+    from paddle_tpu_torch.models import GPT2ForCausalLM, gpt2_124m_config
+    return GPT2ForCausalLM(gpt2_124m_config(), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(weights_seed), seed=seed)
+
+
+def phase_gpt2_width(seed):
+    """GPT-2 124M at all 12 layers: loss and every parameter's grad of one
+    4 x 512-token batch, on the card (bf16 O2, kernels: the flash dropout
+    builds) against the CPU (float32, plain versions) from the same float32
+    weights. Attention dropout is 0.1 on both sides, its mask the same
+    hash of the same seeds (each model's CPU seed generator); the residual
+    and embedding dropouts are set to 0 on both, since torch's CPU and CUDA
+    generators draw different masks. Tolerances: the Llama train_width
+    phase's, loss within 1e-3 relative and each grad within 6% in norm."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import Dropout
+    from paddle_tpu_torch.ops.hopper import launch_counts, \
+        reset_launch_counts
+    card = gpt2_model("cuda", seed + 12, seed)
+    ref = gpt2_model("cpu", seed + 12, seed)
+    ref.load_state_dict(card.state_dict())      # float32 copies
+    for m in (card, ref):
+        for mod in m.modules():
+            if isinstance(mod, Dropout):
+                mod.p = 0.0
+    amp.decorate(card, level="O2", dtype="bfloat16")
+    cfg = card.config
+    gen = torch.Generator().manual_seed(seed + 13)
+    ids = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen)
+    reset_launch_counts()
+    _, loss = card(ids.cuda(), labels=labels.cuda())
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in launch_counts().items() if c}
+    t0 = time.perf_counter()
+    _, ref_loss = ref(ids, labels=labels)
+    ref_loss.backward()
+    cpu_s = time.perf_counter() - t0
+    rel, bad = {}, []
+    for (name, p), (_, r) in zip(card.named_parameters(),
+                                 ref.named_parameters()):
+        if p.grad is None or not bool(p.grad.abs().sum() > 0):
+            bad.append(name)
+            continue
+        rel[name] = float((p.grad.float().cpu() - r.grad).norm()
+                          / r.grad.norm())
+    layers = cfg.num_hidden_layers
+    loss, ref_loss = float(loss.detach()), float(ref_loss.detach())
+    rec = {"phase": "gpt2_width", "layers": layers, "batch": [4, 512],
+           "attention_dropout": cfg.dropout, "loss": loss,
+           "ref_loss": ref_loss, "cpu_s": cpu_s,
+           "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+           "loss_tol_rel": 1e-3,
+           "grad_tol_rel": 0.06, "params": len(rel) + len(bad),
+           "missing_or_zero_grads": bad, "launches": launches,
+           "worst_grad_rel_err": sorted(rel.items(), key=lambda t: -t[1])[:5]}
+    emit(rec)
+    expect = {"flash_attention_dropout": layers,
+              "flash_attention_bwd_dq_dropout": layers,
+              "flash_attention_bwd_dkv_dropout": layers}
+    if bad or rec["loss_rel_err"] > 1e-3 or max(rel.values()) > 0.06 or \
+            launches != expect:
+        fail(f"gpt2 width: card and CPU disagree: {rec}")
+    del card, ref
+    torch.cuda.empty_cache()
+
+
+def phase_gpt2_train(seed):
+    """benchmarks/bench_gpt2.py's path at GPT-2 124M, nothing cut: batch 8 x
+    512, dropout 0.1, AdamW lr 1e-4 (weight decay 0.01 on every parameter)
+    with float32 masters, amp.decorate O2 bf16, TrainStep; 2 warm steps,
+    then 10 timed. The launch counts of one step prove the dropout builds
+    of the flash kernels ran (12 each) and AdamW's 148; the profile of one
+    step that its attention ran the bf16 tensor-core dropout builds only."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.hopper import launch_counts, \
+        reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+    batch, seq, warm, steps = 8, 512, 2, 10
+    t0 = time.perf_counter()
+    model = gpt2_model("cuda", seed + 14, seed)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    cfg = model.config
+    n_params = model.num_params()
+    n_tensors = len(list(model.parameters()))
+    step = TrainStep(lambda i, lab: model(i, labels=lab)[1], opt)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                        device="cuda")
+    labels = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, launches = [], [], None
+    for i in range(warm + steps):
+        if i == warm:
+            reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(ids, labels))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == warm:
+            launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    profile = profile_one(lambda: step(ids, labels))
+    layers = cfg.num_hidden_layers
+    expect = dict.fromkeys(launches, 0)
+    expect.update({"flash_attention_dropout": layers,
+                   "flash_attention_bwd_dq_dropout": layers,
+                   "flash_attention_bwd_dkv_dropout": layers,
+                   "adamw": n_tensors})
+    timed = step_ms[warm:]
+    median_ms = sorted(timed)[len(timed) // 2]
+    tokens_per_s = batch * seq / (median_ms / 1e3)
+    # bench.py's model FLOPs: 6 P per token plus the attention terms
+    flops_per_token = 6 * n_params + 12 * layers * cfg.hidden_size * seq
+    idle = ("not measured" if profile["device_ms"] == "not measured"
+            else 1 - profile["device_ms"] / median_ms)
+    builds = profile["flash_builds"]
+    emit({"phase": "gpt2_train", "layers": layers, "batch": batch,
+          "seq": seq, "params": n_params, "param_tensors": n_tensors,
+          "dropout": cfg.dropout, "init_s": init_s, "step_ms": step_ms,
+          "median_step_ms": median_ms, "tokens_per_s": tokens_per_s,
+          "mfu": tokens_per_s * flops_per_token / H100_BF16_FLOPS,
+          "peak_memory_gib": peak_gib, "device_idle_share": idle,
+          "losses": losses, "launches_per_step": launches,
+          "profile_step": profile})
+    if n_tensors != 148 or launches != expect:
+        fail(f"gpt2 train: {n_tensors} parameter tensors, launch counts "
+             f"{launches}, expected {expect}")
+    # the bf16 tensor-core dropout builds, each over many records, and no
+    # FMA build or build without dropout
+    if profile["flash_fwd_kernels"] != ["flash_fwd_wgmma"] or \
+            profile["flash_bwd_kernels"] != ["flash_bwd_dkv_wgmma",
+                                             "flash_bwd_dq_wgmma"] or \
+            len(builds) != 3 or not all(dropout_build(b) and n > 1
+                                        for b, n in builds.items()):
+        fail(f"gpt2 train attention builds {builds}, expected the three "
+             "wgmma dropout builds only")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"gpt2 train losses not finite and falling: {losses}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_steps(model, ids, s_max):
     """Device time by kernel over one prefill and one decode step."""
     logits, caches, t = model.prefill(ids, s_max)
@@ -1441,27 +1941,34 @@ def main(argv=None):
 
     phase_device()
     kernels = phase_kernels(args.seed)
+    phase_routing(args.seed)
     phase_width(args.seed)
     phase_train_width(args.seed)
     phase_train_width(args.seed, masked=True)
+    phase_gpt2_width(args.seed)
     serve = phase_serve(args.seed)
     train = phase_train(args.seed)
     packed = phase_train(args.seed, packed=True)
+    gpt2 = phase_gpt2_train(args.seed)
     sparse = phase_sparse(args.seed)
     for k in kernels:
         # the forward kernels per generate (and per train step, beside);
         # the backward and AdamW kernels per train step; block-sparse per
-        # sparse_attention call
+        # sparse_attention call; the dropout builds per GPT-2 train step
         name = k["name"]
         if sparse[name]:
             k["launches"] = sparse[name]
         elif serve[name]:
             k["launches"] = serve[name]
             k["launches_per_train_step"] = train[name]
+        elif gpt2[name] and not train[name]:
+            k["launches"] = gpt2[name]
         else:
             k["launches"] = train[name]
         if packed[name]:
             k["launches_per_packed_train_step"] = packed[name]
+        if gpt2[name] and train[name]:
+            k["launches_per_gpt2_train_step"] = gpt2[name]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

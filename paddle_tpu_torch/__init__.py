@@ -7,7 +7,10 @@ built from its source with ``nvcc`` at first use. Nothing here imports JAX
 or ``paddle_tpu``.
 
 Ported so far: Llama serving (prefill, then greedy decode over a dense KV
-cache) through ``models.LlamaForCausalLM.generate``.
+cache) through ``models.LlamaForCausalLM.generate``; Llama and GPT-2
+training (``jit.TrainStep``, ``amp.decorate`` O2, ``optimizer.AdamW``),
+GPT-2's with the flash kernels' in-kernel attention dropout; and
+``nn.functional_extras.sparse_attention``.
 """
 from .device import default_device, on_hopper, to_torch_dtype
 

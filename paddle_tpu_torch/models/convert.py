@@ -1,4 +1,4 @@
-"""Weights from the JAX package's Llama into the port's.
+"""Weights from the JAX package's Llama and GPT-2 into the port's.
 
 Both use the same state-dict names (``model.layers.{i}.self_attn.q_proj.
 weight`` and so on). The JAX ``Linear`` stores ``[in, out]`` (y = x @ W);
@@ -57,6 +57,29 @@ def llama_state_from_paddle_tpu(np_state: dict) -> dict:
     for name, arr in _unstack(np_state).items():
         arr = np.asarray(arr)
         if _is_linear(name):
+            if arr.ndim != 2:
+                raise ValueError(f"{name}: expected a 2-D weight, got "
+                                 f"shape {arr.shape}")
+            arr = arr.T
+        out[name] = torch.tensor(arr)  # a copy: JAX arrays are read-only
+    return out
+
+
+# GPT-2's projections (``[in, out]`` in the JAX package)
+_GPT2_LINEARS = ("c_attn.weight", "c_proj.weight", "c_fc.weight",
+                 "lm_head.weight")
+
+
+def gpt2_state_from_paddle_tpu(np_state: dict) -> dict:
+    """Map ``{name: np.ndarray}`` from a ``paddle_tpu`` GPT-2 state dict to
+    ``{name: torch.Tensor}`` for ``GPT2ForCausalLM.load_state_dict``: the
+    ``c_attn``, ``c_proj`` and ``c_fc`` weights (and an untied LM head) are
+    transposed; biases, embeddings and LayerNorm weights carry over as they
+    are."""
+    out = {}
+    for name, arr in np_state.items():
+        arr = np.asarray(arr)
+        if name.endswith(_GPT2_LINEARS):
             if arr.ndim != 2:
                 raise ValueError(f"{name}: expected a 2-D weight, got "
                                  f"shape {arr.shape}")

@@ -7,7 +7,9 @@ one pattern for every batch row and head) and ``s % 128 == 0`` and
 ``d % 8 == 0``, ``sparse_attention`` runs the block-sparse kernel over the
 active tiles only; otherwise it applies the pattern densely, as the JAX
 package does. That dense route is the JAX package's own routing, not a
-fallback from a kernel that failed.
+fallback from a kernel that failed. Off the CPU the kernel route also needs
+what the kernel takes (``kernel_route``): a head dim up to 128 and float32
+or bfloat16 inputs.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.hopper import block_sparse_attention
+from ..ops.hopper.block_sparse_attention import MAX_HEAD_DIM
 
 BLOCK = 128
 _CACHE_SIZE = 8
@@ -91,6 +94,19 @@ def _host(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def kernel_route(query, block_mask) -> bool:
+    """Whether ``sparse_attention`` takes the block-sparse kernel route: a
+    tile-aligned pattern and ``d % 8 == 0`` (the JAX package's routing);
+    off the CPU also a head dim up to ``MAX_HEAD_DIM`` and float32 or
+    bfloat16 q (the CPU's plain version takes any). Decided from the
+    pattern, shapes, type and device type alone."""
+    d = query.shape[-1]
+    if block_mask is None or d % 8:
+        return False
+    return query.device.type == "cpu" or (
+        d <= MAX_HEAD_DIM and query.dtype in (torch.float32, torch.bfloat16))
+
+
 def sparse_attention(query, key, value, sparse_csr_offset, sparse_csr_columns,
                      key_padding_mask=None, attn_mask=None):
     """Attention over ``[b, h, s, d]`` restricted to a CSR pattern per
@@ -110,7 +126,7 @@ def sparse_attention(query, key, value, sparse_csr_offset, sparse_csr_columns,
     offs, cols = _host(sparse_csr_offset), _host(sparse_csr_columns)
     b, h, seq, d = query.shape
     _, block_mask = _csr_masks(offs, cols, seq, BLOCK, dense=False)
-    if block_mask is not None and d % 8 == 0:
+    if kernel_route(query, block_mask):
         out = block_sparse_attention(query.transpose(1, 2),
                                      key.transpose(1, 2),
                                      value.transpose(1, 2), block_mask)
@@ -124,4 +140,4 @@ def sparse_attention(query, key, value, sparse_csr_offset, sparse_csr_columns,
     return probs @ value
 
 
-__all__ = ["sparse_attention"]
+__all__ = ["kernel_route", "sparse_attention"]

@@ -14,32 +14,38 @@ from .flash_attention import (FlashAttentionFunction, flash_attention,
                               flash_attention_bwd, flash_attention_bwd_dkv,
                               flash_attention_bwd_dq,
                               flash_attention_bwd_plain,
-                              flash_attention_plain)
+                              flash_attention_plain, keep_mask)
 from .fused_ops import (RMSNormFunction, adamw_, adamw_plain, rms_norm,
                         rms_norm_bwd, rms_norm_bwd_plain, rms_norm_plain)
 
-# kernel name -> the wrapper whose ``launches`` counts that kernel's launches
-# (the forward wrappers count recompute launches too)
+# kernel name -> (the wrapper, its attribute that counts that kernel's
+# launches); the forward wrappers count recompute launches too, and the flash
+# wrappers count their dropout builds apart
 KERNELS = {
-    "flash_attention": flash_attention,
-    "flash_attention_bwd_dq": flash_attention_bwd_dq,
-    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
-    "rms_norm": rms_norm,
-    "rms_norm_bwd": rms_norm_bwd,
-    "adamw": adamw_,
-    "block_sparse_attention": block_sparse_attention_fwd,
+    "flash_attention": (flash_attention, "launches"),
+    "flash_attention_bwd_dq": (flash_attention_bwd_dq, "launches"),
+    "flash_attention_bwd_dkv": (flash_attention_bwd_dkv, "launches"),
+    "flash_attention_dropout": (flash_attention, "dropout_launches"),
+    "flash_attention_bwd_dq_dropout": (flash_attention_bwd_dq,
+                                       "dropout_launches"),
+    "flash_attention_bwd_dkv_dropout": (flash_attention_bwd_dkv,
+                                        "dropout_launches"),
+    "rms_norm": (rms_norm, "launches"),
+    "rms_norm_bwd": (rms_norm_bwd, "launches"),
+    "adamw": (adamw_, "launches"),
+    "block_sparse_attention": (block_sparse_attention_fwd, "launches"),
 }
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0."""
-    for fn in KERNELS.values():
-        fn.launches = 0
+    """Set every kernel's launch count to 0."""
+    for fn, attr in KERNELS.values():
+        setattr(fn, attr, 0)
 
 
 def launch_counts() -> dict:
     """``{kernel name: launches}`` since the last reset."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in KERNELS.items()}
 
 
 __all__ = ["BlockSparseAttentionFunction", "FlashAttentionFunction",
@@ -48,6 +54,6 @@ __all__ = ["BlockSparseAttentionFunction", "FlashAttentionFunction",
            "block_sparse_attention_plain", "compress_block_mask",
            "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-           "flash_attention_bwd_plain", "flash_attention_plain", "rms_norm",
-           "rms_norm_bwd", "rms_norm_bwd_plain", "rms_norm_plain", "KERNELS",
-           "launch_counts", "reset_launch_counts"]
+           "flash_attention_bwd_plain", "flash_attention_plain", "keep_mask",
+           "rms_norm", "rms_norm_bwd", "rms_norm_bwd_plain", "rms_norm_plain",
+           "KERNELS", "launch_counts", "reset_launch_counts"]

@@ -3,8 +3,17 @@
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_fwd_kernel (launched
 // by _fwd_call through flash_attention_pallas): blockwise attention with an
 // online softmax in float32, native GQA, causal or not, an optional additive
-// mask, writing O in the input type and the float32 log-sum-exp per row. The
-// TPU kernel's kv_seqlens and dropout are not ported yet.
+// mask and dropout on the probabilities, writing O in the input type and the
+// float32 log-sum-exp per row. The TPU kernel's kv_seqlens is not ported
+// yet.
+//
+// Dropout (a template argument, kDrop, so the builds without it are
+// unchanged): the P that multiplies V keeps the entries of the hash mask of
+// flash_common.cuh (keep_bits: the TPU kernel's _keep_mask on its interpret
+// path, of the absolute row and column, batch * hq + q-head and the seed),
+// scaled by 1 / (1 - p); the row sum l and the LSE are the undropped P's,
+// as in _fwd_kernel. The backward kernels draw the same mask from the same
+// seed, so nothing is stored.
 //
 // Bound on this card: at the training shape (s = 2048, d = 128, causal) the
 // two products do about s / 4 flops per byte of Q, K, V and O, above the
@@ -106,12 +115,13 @@ struct Smem {
   static constexpr int kBytes = kFloats * static_cast<int>(sizeof(float));
 };
 
-template <typename T, int D, int kMask>
+template <typename T, int D, int kMask, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const void* __restrict__ mask,
                  T* __restrict__ o, float* __restrict__ lse, int s, int hq,
-                 int hkv, int mask_heads, bool causal, float scale) {
+                 int hkv, int mask_heads, bool causal, float scale,
+                 Dropout drop) {
   using L = Smem<D>;
   constexpr int kCols = D / 16;      // output columns per thread
   constexpr int kChunks = kCols / 4; // float4 chunks of them
@@ -126,6 +136,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int hk = h / (hq / hkv);
   const int q0 = qt * kBlockM;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const uint32_t drop_base = kDrop ? drop.base(bh) : 0u;
 
   const size_t q_stride = static_cast<size_t>(hq) * D;
   const size_t kv_stride = static_cast<size_t>(hkv) * D;
@@ -221,10 +232,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float m_new = fmaxf(m[i], mx);
       const float alpha = expf(m[i] - m_new);
       float rs = 0.f;
+      const uint32_t drop_row =
+          static_cast<uint32_t>(row) * kDropRowMul ^ drop_base;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = keep[j] ? expf(sc[i][j] - m_new) : 0.f;
+        float p = keep[j] ? expf(sc[i][j] - m_new) : 0.f;
         rs += p;
+        if constexpr (kDrop)
+          p = keep_bits(drop_row,
+                        static_cast<uint32_t>(k0 + tx + 16 * j) *
+                            kDropColMul,
+                        drop.threshold)
+                  ? p * drop.scale
+                  : 0.f;
         sP[(ty * 4 + i) * L::kLdP + tx + 16 * j] = p;
       }
 #pragma unroll
@@ -296,7 +316,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <int kMask>
 constexpr int kFwdTileRows = kMask == kNoMask ? 128 : 64;
 
-template <int D, int kMask, bool kWindow>
+template <int D, int kMask, bool kWindow, bool kDrop>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
@@ -304,7 +324,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_mask,
                 const __grid_constant__ CUtensorMap tm_o,
                 float* __restrict__ lse, const void* __restrict__ mask, int s,
-                int hq, int hkv, int mask_heads, int causal, float scale) {
+                int hq, int hkv, int mask_heads, int causal, float scale,
+                Dropout drop) {
   using namespace wg;
   constexpr int kN = kFwdTileRows<kMask>;
   using L = FwdLayout<D, kMask, kWindow, 2, kN>;
@@ -390,10 +411,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   hopper::mbar_wait(qbar, 0);
   // products overlapping the softmax where the ring has 3 stages; the two
   // warpgroups taking turns
-  fwd_consume<D, kN, kMask, L::kStages >= 3, true>(
+  fwd_consume<D, kN, kMask, L::kStages >= 3, true, kDrop>(
       sQ, smem + L::kStage0, L::kStageBytes, L::kStages, L::kKVTile, full,
       empty, n_tiles, n_active, n_interior, row0, s, causal != 0, scale, cw,
-      k0_of, mask_pair, acc, m, l);
+      k0_of, mask_pair, acc, m, l, drop, kDrop ? drop.base(bh) : 0u);
 
   // LSE = the row max in natural-log units + log(l): unmasked, m is a raw
   // score's
@@ -411,32 +432,33 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   store_o<D>(acc, l, sQ, &tm_o, cw, h, row0, b, row0 < s);
 }
 
-template <typename T, int D, int kMask>
+template <typename T, int D, int kMask, bool kDrop>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            void* o, void* lse, int batch, int s, int hq, int hkv,
-           int mask_heads, bool causal, float scale, cudaStream_t stream) {
+           int mask_heads, bool causal, float scale, Dropout drop,
+           cudaStream_t stream) {
   using L = Smem<D>;
   // above the 48 KB default, so opt in (a cheap host call, made per launch
   // so that it holds on whichever card is current)
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, kMask>,
+      flash_fwd_kernel<T, D, kMask, kDrop>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(batch * hq, (s + kBlockM - 1) / kBlockM), block(kThreads);
-  flash_fwd_kernel<T, D, kMask><<<grid, block, L::kBytes, stream>>>(
+  flash_fwd_kernel<T, D, kMask, kDrop><<<grid, block, L::kBytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(o),
-      static_cast<float*>(lse), s, hq, hkv, mask_heads, causal, scale);
+      static_cast<float*>(lse), s, hq, hkv, mask_heads, causal, scale, drop);
   RETURN_LAUNCH_ERROR();
 }
 
 // The build that takes the mask as TMA windows when its rows can be
 // mapped, else the one that reads it from global memory.
-template <int D, int kMask>
+template <int D, int kMask, bool kDrop>
 int launch_wgmma_fwd(const void* q, const void* k, const void* v,
                      const void* mask, void* o, void* lse, int batch, int s,
                      int hq, int hkv, int mask_heads, bool causal,
-                     float scale, cudaStream_t stream) {
+                     float scale, Dropout drop, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tmask = {}, to;
   if (!rows_map(&tq, q, batch, s, hq, D) ||
       !rows_map(&tk, k, batch, s, hkv, D) ||
@@ -453,15 +475,15 @@ int launch_wgmma_fwd(const void* q, const void* k, const void* v,
                                        Window::kPitch, 2 * wg::kRows);
     if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
     if (window)
-      return launch_wgmma(flash_fwd_wgmma<D, kMask, true>, Window::kBytes,
-                          grid, wg::kThreads, stream, tq, tk, tv, tmask, to,
-                          lse_f, mask, s, hq, hkv, mask_heads,
-                          static_cast<int>(causal), scale);
+      return launch_wgmma(flash_fwd_wgmma<D, kMask, true, kDrop>,
+                          Window::kBytes, grid, wg::kThreads, stream, tq, tk,
+                          tv, tmask, to, lse_f, mask, s, hq, hkv, mask_heads,
+                          static_cast<int>(causal), scale, drop);
   }
-  return launch_wgmma(flash_fwd_wgmma<D, kMask, false>, Global::kBytes, grid,
-                      wg::kThreads, stream, tq, tk, tv, tmask, to, lse_f,
-                      mask, s, hq, hkv, mask_heads, static_cast<int>(causal),
-                      scale);
+  return launch_wgmma(flash_fwd_wgmma<D, kMask, false, kDrop>, Global::kBytes,
+                      grid, wg::kThreads, stream, tq, tk, tv, tmask, to,
+                      lse_f, mask, s, hq, hkv, mask_heads,
+                      static_cast<int>(causal), scale, drop);
 }
 
 }  // namespace
@@ -471,34 +493,41 @@ DEFINE_ERROR_STRING()
 // q, o: [batch, s, hq, d]; k, v: [batch, s, hkv, d], all contiguous of
 // `dtype` with 16-byte aligned bases; lse: [batch, hq, s] float32. mask:
 // null (mask_code kNoMask) or a contiguous additive [batch, mask_heads, s, s]
-// of float32 or `dtype` (mask_code), mask_heads 1 or hq. bfloat16 takes the
-// wgmma kernel, float32 the FMA kernel. Launches on `stream`, allocates
-// nothing, does not synchronise.
+// of float32 or `dtype` (mask_code), mask_heads 1 or hq. With `dropout` the
+// dropout build runs with the keep mask's threshold, scale and seed
+// (Dropout). bfloat16 takes the wgmma kernel, float32 the FMA kernel.
+// Launches on `stream`, allocates nothing, does not synchronise.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* mask, void* o,
                                    void* lse, int batch, int s, int hq,
                                    int hkv, int mask_heads, int d, int causal,
                                    float scale, int dtype, int mask_code,
+                                   int dropout, unsigned drop_threshold,
+                                   float drop_scale, unsigned drop_seed,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, d, mask_code, [&](auto t, auto dim, auto m) {
+  const Dropout drop{drop_threshold, drop_scale, drop_seed};
+  return dispatch(dtype, d, mask_code, dropout != 0,
+                  [&](auto t, auto dim, auto m, auto dr) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dim)::value, kMask = decltype(m)::value;
+    constexpr bool kDrop = decltype(dr)::value;
     if constexpr (std::is_same_v<T, float>)
-      return launch<T, D, kMask>(q, k, v, mask, o, lse, batch, s, hq, hkv,
-                                 mask_heads, causal != 0, scale, st);
-    else
-      return launch_wgmma_fwd<D, kMask>(q, k, v, mask, o, lse, batch, s, hq,
+      return launch<T, D, kMask, kDrop>(q, k, v, mask, o, lse, batch, s, hq,
                                         hkv, mask_heads, causal != 0, scale,
-                                        st);
+                                        drop, st);
+    else
+      return launch_wgmma_fwd<D, kMask, kDrop>(q, k, v, mask, o, lse, batch,
+                                               s, hq, hkv, mask_heads,
+                                               causal != 0, scale, drop, st);
   });
 }
 
 // Dynamic shared memory (bytes) of the bf16 build for head dim d, a mask
 // code, and whether the mask arrives as TMA windows (window 1) or is read
-// from global memory.
+// from global memory; the dropout builds take the same.
 extern "C" int flash_attention_fwd_wgmma_smem(int d, int mask_code,
-                                              int window) {
+                                              int window, int /*dropout*/) {
   return dispatch(kBFloat16, d, mask_code, [&](auto, auto dim, auto m) {
     constexpr int D = decltype(dim)::value, kMask = decltype(m)::value;
     constexpr int kN = kFwdTileRows<kMask>;

@@ -8,7 +8,16 @@
 //   dQ = scale * sum_k dS K,   dS = P * (dO V^T - delta)
 //   dV = P^T dO,               dK = dS^T (Q * scale)
 // Causal or not, native GQA, an optional additive mask added to S before the
-// causal mask. The TPU kernels' kv_seqlens and dropout are not ported yet.
+// causal mask, and dropout. The TPU kernels' kv_seqlens is not ported yet.
+//
+// Dropout (a template argument, kDrop, so the builds without it are
+// unchanged) redraws the forward's keep mask from the same seed
+// (keep_bits in flash_common.cuh): dP is dropped and scaled by 1 / (1 - p)
+// before dS = P (dP - delta), and dV takes the dropped, scaled P, as
+// _bwd_dq_kernel and _bwd_dkv_kernel do; delta is rowsum(dO * O) of the
+// dropped O. The dK/dV kernels hold S^T (K rows by Q columns), so their
+// hash takes the Q column as its row and the K row as its column: the mask
+// is indexed by (query, key) in every kernel.
 //
 // Bound on this card: at the training shape (s = 2048, d = 128, causal) the
 // three (dQ) and four (dK/dV) products do about s / 2 flops per byte moved,
@@ -115,7 +124,7 @@ struct BwdSmem {
       static_cast<int>(sizeof(float));
 };
 
-template <typename T, int D, int kMask>
+template <typename T, int D, int kMask, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -123,7 +132,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta,
                     const void* __restrict__ mask, T* __restrict__ dq, int s,
                     int hq, int hkv, int mask_heads, bool causal,
-                    float scale) {
+                    float scale, Dropout drop) {
   using L = BwdSmem<D>;
   constexpr int kCols = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -150,12 +159,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_tile<T, D>(sdO, L::kLd, dout + q_off, q_stride, s - q0, 1.f);
 
   float row_lse[4], row_delta[4];
+  uint32_t drop_row[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     const size_t at = static_cast<size_t>(bh) * s + row;
     row_lse[i] = row < s ? lse[at] : 0.f;
     row_delta[i] = row < s ? delta[at] : 0.f;
+    drop_row[i] = kDrop ? static_cast<uint32_t>(row) * kDropRowMul ^
+                              drop.base(bh)
+                        : 0u;
   }
 
   float acc[4][kCols];
@@ -196,7 +209,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
             sc[i][j] += mask_at<kMask>(plane, s, row, col);
         }
         const float p = keep ? expf(sc[i][j] - row_lse[i]) : 0.f;
-        sdS[(ty * 4 + i) * kLdS + tx + 16 * j] = p * (dp[i][j] - row_delta[i]);
+        float dpv = dp[i][j];
+        if constexpr (kDrop)
+          dpv = keep_bits(drop_row[i],
+                          static_cast<uint32_t>(col) * kDropColMul,
+                          drop.threshold)
+                    ? dpv * drop.scale
+                    : 0.f;
+        sdS[(ty * 4 + i) * kLdS + tx + 16 * j] = p * (dpv - row_delta[i]);
       }
     }
     __syncthreads();
@@ -218,7 +238,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, int kMask>
+template <typename T, int D, int kMask, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -226,7 +246,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta,
                      const void* __restrict__ mask, T* __restrict__ dk,
                      T* __restrict__ dv, int s, int hq, int hkv,
-                     int mask_heads, bool causal, float scale) {
+                     int mask_heads, bool causal, float scale,
+                     Dropout drop) {
   using L = BwdSmem<D>;
   constexpr int kCols = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -272,6 +293,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const void* plane = nullptr;
     if constexpr (kMask != kNoMask)
       plane = mask_plane<kMask>(mask, b, h, mask_heads, s);
+    const uint32_t drop_base = kDrop ? drop.base(static_cast<int>(bh)) : 0u;
     for (int qt = qt_first; qt < nq; ++qt) {
       const int q0 = qt * kBlockM;
       const size_t q_off = (static_cast<size_t>(b) * s + q0) * q_stride +
@@ -302,8 +324,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
               st[i][j] += mask_at<kMask>(plane, s, qrow, krow);
           }
           const float p = keep ? expf(st[i][j] - sLse[qc]) : 0.f;
-          sP[(ty * 4 + i) * kLdS + qc] = p;
-          sdS[(ty * 4 + i) * kLdS + qc] = p * (dpt[i][j] - sDelta[qc]);
+          float pv = p, dpv = dpt[i][j];
+          // the mask's row is the query position, its column the key's
+          if constexpr (kDrop) {
+            const bool kept = keep_bits(
+                static_cast<uint32_t>(qrow) * kDropRowMul ^ drop_base,
+                static_cast<uint32_t>(krow) * kDropColMul, drop.threshold);
+            pv = kept ? p * drop.scale : 0.f;
+            dpv = kept ? dpv * drop.scale : 0.f;
+          }
+          sP[(ty * 4 + i) * kLdS + qc] = pv;
+          sdS[(ty * 4 + i) * kLdS + qc] = p * (dpv - sDelta[qc]);
         }
       }
       __syncthreads();
@@ -409,7 +440,7 @@ __device__ __forceinline__ float mask_load(const void* p, int idx) {
 
 }  // namespace wg
 
-template <int D, int kMask, bool kWindow>
+template <int D, int kMask, bool kWindow, bool kDrop>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -420,7 +451,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta,
                    const void* __restrict__ mask, int s, int hq, int hkv,
-                   int mask_heads, int causal, float scale) {
+                   int mask_heads, int causal, float scale, Dropout drop) {
   using namespace wg;
   using L = DqLayout<D, kMask, kWindow>;
   constexpr int kChunks = D / 64;
@@ -489,6 +520,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int row_l = kRows * cw + 16 * warp + g;  // and row_l + 8
   const float scale2 = scale * kLog2e;
   float row_lse[2], row_lse2[2], row_delta[2];
+  uint32_t drop_row[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + row_l + 8 * i;
@@ -496,6 +528,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
     row_lse[i] = row < s ? lse[at] : 0.f;
     row_lse2[i] = row_lse[i] * kLog2e;
     row_delta[i] = row < s ? delta[at] : 0.f;
+    drop_row[i] = kDrop ? static_cast<uint32_t>(row) * kDropRowMul ^
+                              drop.base(bh)
+                        : 0u;
   }
   const void* plane = nullptr;
   if constexpr (kMask != kNoMask && !kWindow)
@@ -569,6 +604,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
         probs(std::true_type{});
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dp);
+      const uint32_t drop_col =
+          static_cast<uint32_t>(k0 + 2 * tq) * kDropColMul;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -576,7 +613,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int r = 4 * j + 2 * i + e;
-            dp[r] = sc[r] * (dp[r] - row_delta[i]);
+            float dpv = dp[r];
+            if constexpr (kDrop)
+              dpv = keep_bits(drop_row[i],
+                              drop_col + static_cast<uint32_t>(8 * j + e) *
+                                             kDropColMul,
+                              drop.threshold)
+                        ? dpv * drop.scale
+                        : 0.f;
+            dp[r] = sc[r] * (dpv - row_delta[i]);
           }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) hopper::to_a_frag(dp, kk, a[kk]);
@@ -608,7 +653,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D, int kMask, bool kWindow>
+template <int D, int kMask, bool kWindow, bool kDrop>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -620,7 +665,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     const void* __restrict__ mask, int s, int hq, int hkv,
-                    int mask_heads, int causal, float scale) {
+                    int mask_heads, int causal, float scale, Dropout drop) {
   using namespace wg;
   using L = DkvLayout<D, kMask, kWindow>;
   constexpr int kChunks = D / 64;
@@ -790,6 +835,18 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
         probs(std::true_type{});
       hopper::wgmma_wait<0>();  // dP^T
       hopper::fence_regs(dp);
+      // dropout: the mask's row is the Q column (query position), its column
+      // the K row (key position); P^T turns into the dropped, scaled P^T of
+      // dV once dS^T has taken the undropped one
+      uint32_t drop_q = 0u, drop_k[2] = {0u, 0u};
+      if constexpr (kDrop) {
+        const uint32_t base = drop.base(b * hq + h);
+        drop_q = static_cast<uint32_t>(q0 + 2 * tq) * kDropRowMul;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          drop_k[i] =
+              static_cast<uint32_t>(k0 + kr_l + 8 * i) * kDropColMul ^ base;
+      }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float2 d2 =
@@ -799,7 +856,17 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int r = 4 * j + 2 * i + e;
-            dp[r] = sc[r] * (dp[r] - (e ? d2.y : d2.x));
+            float dpv = dp[r];
+            if constexpr (kDrop) {
+              const bool kept = keep_bits(
+                  drop_q + static_cast<uint32_t>(8 * j + e) * kDropRowMul,
+                  drop_k[i], drop.threshold);
+              dpv = kept ? dpv * drop.scale : 0.f;
+              dp[r] = sc[r] * (dpv - (e ? d2.y : d2.x));
+              sc[r] = kept ? sc[r] * drop.scale : 0.f;
+            } else {
+              dp[r] = sc[r] * (dpv - (e ? d2.y : d2.x));
+            }
           }
       }
       // P^T and dS^T are formed before either product is issued, so their
@@ -856,44 +923,47 @@ struct Args {
   int batch, s, hq, hkv, mask_heads;
   bool causal;
   float scale;
+  Dropout drop;
 };
 
-template <int D, int kMask>
+template <int D, int kMask, bool kDrop>
 int launch_dq_fma(const Args& a, void* dq, cudaStream_t stream) {
   const int bytes = BwdSmem<D>::kDqBytes;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<float, D, kMask>,
+      flash_bwd_dq_kernel<float, D, kMask, kDrop>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(a.batch * a.hq, (a.s + kBlockM - 1) / kBlockM);
-  flash_bwd_dq_kernel<float, D, kMask><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, a.mask, static_cast<float*>(dq), a.s, a.hq, a.hkv,
-      a.mask_heads, a.causal, a.scale);
+  flash_bwd_dq_kernel<float, D, kMask, kDrop>
+      <<<grid, kThreads, bytes, stream>>>(
+          static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+          static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+          a.lse, a.delta, a.mask, static_cast<float*>(dq), a.s, a.hq, a.hkv,
+          a.mask_heads, a.causal, a.scale, a.drop);
   RETURN_LAUNCH_ERROR();
 }
 
-template <int D, int kMask>
+template <int D, int kMask, bool kDrop>
 int launch_dkv_fma(const Args& a, void* dk, void* dv, cudaStream_t stream) {
   const int bytes = BwdSmem<D>::kDkvBytes;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<float, D, kMask>,
+      flash_bwd_dkv_kernel<float, D, kMask, kDrop>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(a.batch * a.hkv, (a.s + kBlockN - 1) / kBlockN);
-  flash_bwd_dkv_kernel<float, D, kMask><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, a.mask, static_cast<float*>(dk),
-      static_cast<float*>(dv), a.s, a.hq, a.hkv, a.mask_heads, a.causal,
-      a.scale);
+  flash_bwd_dkv_kernel<float, D, kMask, kDrop>
+      <<<grid, kThreads, bytes, stream>>>(
+          static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+          static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+          a.lse, a.delta, a.mask, static_cast<float*>(dk),
+          static_cast<float*>(dv), a.s, a.hq, a.hkv, a.mask_heads, a.causal,
+          a.scale, a.drop);
   RETURN_LAUNCH_ERROR();
 }
 
 // The build that takes the mask as TMA windows when its rows can be
 // mapped, else the one that reads it from global memory.
-template <int D, int kMask>
+template <int D, int kMask, bool kDrop>
 int launch_dq_wgmma(const Args& a, void* dq, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo, tmask = {}, tdq;
   if (!rows_map(&tq, a.q, a.batch, a.s, a.hq, D) ||
@@ -910,20 +980,21 @@ int launch_dq_wgmma(const Args& a, void* dq, cudaStream_t stream) {
                         wg::kMaskPitch, 2 * wg::kRows);
     if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
     if (window)
-      return launch_wgmma(flash_bwd_dq_wgmma<D, kMask, true>,
+      return launch_wgmma(flash_bwd_dq_wgmma<D, kMask, true, kDrop>,
                           wg::DqLayout<D, kMask, true>::kBytes, grid,
                           wg::kThreads, stream, tq, tk, tv, tdo, tmask, tdq,
                           a.lse, a.delta, a.mask, a.s, a.hq, a.hkv,
-                          a.mask_heads, static_cast<int>(a.causal), a.scale);
+                          a.mask_heads, static_cast<int>(a.causal), a.scale,
+                          a.drop);
   }
-  return launch_wgmma(flash_bwd_dq_wgmma<D, kMask, false>,
+  return launch_wgmma(flash_bwd_dq_wgmma<D, kMask, false, kDrop>,
                       wg::DqLayout<D, kMask, false>::kBytes, grid,
                       wg::kThreads, stream, tq, tk, tv, tdo, tmask, tdq,
                       a.lse, a.delta, a.mask, a.s, a.hq, a.hkv, a.mask_heads,
-                      static_cast<int>(a.causal), a.scale);
+                      static_cast<int>(a.causal), a.scale, a.drop);
 }
 
-template <int D, int kMask>
+template <int D, int kMask, bool kDrop>
 int launch_dkv_wgmma(const Args& a, void* dk, void* dv,
                      cudaStream_t stream) {
   CUtensorMap tq, tk, tv, tdo, tmask = {}, tdk, tdv;
@@ -942,26 +1013,29 @@ int launch_dkv_wgmma(const Args& a, void* dk, void* dv,
                         wg::kDkvMaskPitch<kMask>, wg::kRows);
     if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
     if (window)
-      return launch_wgmma(flash_bwd_dkv_wgmma<D, kMask, true>,
+      return launch_wgmma(flash_bwd_dkv_wgmma<D, kMask, true, kDrop>,
                           wg::DkvLayout<D, kMask, true>::kBytes, grid,
                           wg::kThreads, stream, tq, tk, tv, tdo, tmask, tdk,
                           tdv, a.lse, a.delta, a.mask, a.s, a.hq, a.hkv,
-                          a.mask_heads, static_cast<int>(a.causal), a.scale);
+                          a.mask_heads, static_cast<int>(a.causal), a.scale,
+                          a.drop);
   }
-  return launch_wgmma(flash_bwd_dkv_wgmma<D, kMask, false>,
+  return launch_wgmma(flash_bwd_dkv_wgmma<D, kMask, false, kDrop>,
                       wg::DkvLayout<D, kMask, false>::kBytes, grid,
                       wg::kThreads, stream, tq, tk, tv, tdo, tmask, tdk, tdv,
                       a.lse, a.delta, a.mask, a.s, a.hq, a.hkv, a.mask_heads,
-                      static_cast<int>(a.causal), a.scale);
+                      static_cast<int>(a.causal), a.scale, a.drop);
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, const void* mask,
                int batch, int s, int hq, int hkv, int mask_heads, int causal,
-               float scale) {
+               float scale, unsigned drop_threshold, float drop_scale,
+               unsigned drop_seed) {
   return Args{q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), mask, batch, s, hq, hkv,
-              mask_heads, causal != 0, scale};
+              mask_heads, causal != 0, scale,
+              Dropout{drop_threshold, drop_scale, drop_seed}};
 }
 
 }  // namespace
@@ -972,27 +1046,33 @@ DEFINE_ERROR_STRING()
 // contiguous of `dtype` with 16-byte aligned bases; lse, delta: [batch, hq,
 // s] float32; mask: null (mask_code kNoMask) or the forward's contiguous
 // additive [batch, mask_heads, s, s] of float32 or `dtype` (mask_code).
-// bfloat16 takes the wgmma kernels, float32 the FMA kernels. Each entry
-// launches one kernel on `stream`, allocates nothing and does not
-// synchronise.
+// With `dropout` the dropout build runs with the forward's keep-mask
+// threshold, scale and seed (Dropout). bfloat16 takes the wgmma kernels,
+// float32 the FMA kernels. Each entry launches one kernel on `stream`,
+// allocates nothing and does not synchronise.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       const void* mask, void* dq, int batch,
                                       int s, int hq, int hkv, int mask_heads,
                                       int d, int causal, float scale,
-                                      int dtype, int mask_code,
+                                      int dtype, int mask_code, int dropout,
+                                      unsigned drop_threshold,
+                                      float drop_scale, unsigned drop_seed,
                                       void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, mask, batch, s, hq,
-                           hkv, mask_heads, causal, scale);
+                           hkv, mask_heads, causal, scale, drop_threshold,
+                           drop_scale, drop_seed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, d, mask_code, [&](auto t, auto dim, auto m) {
+  return dispatch(dtype, d, mask_code, dropout != 0,
+                  [&](auto t, auto dim, auto m, auto dr) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dim)::value, kMask = decltype(m)::value;
+    constexpr bool kDrop = decltype(dr)::value;
     if constexpr (std::is_same_v<T, float>)
-      return launch_dq_fma<D, kMask>(a, dq, st);
+      return launch_dq_fma<D, kMask, kDrop>(a, dq, st);
     else
-      return launch_dq_wgmma<D, kMask>(a, dq, st);
+      return launch_dq_wgmma<D, kMask, kDrop>(a, dq, st);
   });
 }
 
@@ -1003,25 +1083,32 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        int batch, int s, int hq, int hkv,
                                        int mask_heads, int d, int causal,
                                        float scale, int dtype, int mask_code,
+                                       int dropout, unsigned drop_threshold,
+                                       float drop_scale, unsigned drop_seed,
                                        void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, mask, batch, s, hq,
-                           hkv, mask_heads, causal, scale);
+                           hkv, mask_heads, causal, scale, drop_threshold,
+                           drop_scale, drop_seed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dispatch(dtype, d, mask_code, [&](auto t, auto dim, auto m) {
+  return dispatch(dtype, d, mask_code, dropout != 0,
+                  [&](auto t, auto dim, auto m, auto dr) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dim)::value, kMask = decltype(m)::value;
+    constexpr bool kDrop = decltype(dr)::value;
     if constexpr (std::is_same_v<T, float>)
-      return launch_dkv_fma<D, kMask>(a, dk, dv, st);
+      return launch_dkv_fma<D, kMask, kDrop>(a, dk, dv, st);
     else
-      return launch_dkv_wgmma<D, kMask>(a, dk, dv, st);
+      return launch_dkv_wgmma<D, kMask, kDrop>(a, dk, dv, st);
   });
 }
 
 // Dynamic shared memory (bytes) of the bf16 build of the dQ (kernel 0) or
 // dK/dV (kernel 1) kernel for head dim d, a mask code, and whether the mask
-// arrives as TMA windows (window 1) or is read from global memory.
+// arrives as TMA windows (window 1) or is read from global memory; the
+// dropout builds take the same.
 extern "C" int flash_attention_bwd_wgmma_smem(int kernel, int d,
-                                              int mask_code, int window) {
+                                              int mask_code, int window,
+                                              int /*dropout*/) {
   return dispatch(kBFloat16, d, mask_code, [&](auto, auto dim, auto m) {
     constexpr int D = decltype(dim)::value, kMask = decltype(m)::value;
     if (window && kMask != kNoMask)

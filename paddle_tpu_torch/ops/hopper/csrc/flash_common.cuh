@@ -4,8 +4,11 @@
 //     memory by 256 threads laid out as 16 x 16, each thread owning 4 rows
 //     (ty * 4 + i) and 4 columns (tx + 16 j) of a 64 x 64 score tile, and a
 //     4 x d/16 patch (columns 64 cc + 4 tx + e) of a 64 x d output tile;
-//   * the additive mask's readers; the dispatch over input type, head dim
-//     and mask type;
+//   * the additive mask's readers; the dispatch over input type, head dim,
+//     mask type and dropout;
+//   * dropout's keep mask (Dropout, keep_bits): the hash of the TPU
+//     kernels' interpret path, so the plain versions and the kernels draw
+//     the same mask;
 //   * the bf16 tensor-core kernels' pieces (namespace wg): block shape and
 //     shared-memory layout, wgmma descriptors of swizzled tiles, mask
 //     windows, tensor maps, and the forward's online-softmax consumer loop
@@ -181,6 +184,45 @@ struct Tag {
 template <int N>
 using Int = std::integral_constant<int, N>;
 
+// Dropout on the attention probabilities: an entry (row, col) of the
+// (batch, q-head) plane bh is kept where
+//   x = row C1 ^ col C2 ^ bh C3 ^ seed C4 (uint32), then murmur3's finalizer
+// (x ^= x >> 16, x *= 0x85EBCA6B, x ^= x >> 13, x *= 0xC2B2AE35,
+// x ^= x >> 16) is at least `threshold` = min(p 2^32, 2^32 - 1), and kept
+// entries are scaled by `scale` = 1 / (1 - p) in float32: the keep mask of
+// paddle_tpu/ops/pallas/flash_attention.py::_keep_mask on its interpret
+// path, bit for bit (the TPU path's hardware generator does not port). row
+// is always the query position and col the key position, also in the
+// dK/dV kernels, whose tiles are transposed. The row and column products
+// are hoisted: per element the mask costs three shift-xors, two multiplies
+// and a compare.
+constexpr uint32_t kDropRowMul = 0x9E3779B9u;
+constexpr uint32_t kDropColMul = 0x85EBCA6Bu;
+constexpr uint32_t kDropBhMul = 0xC2B2AE35u;
+constexpr uint32_t kDropSeedMul = 0x27D4EB2Fu;
+
+struct Dropout {
+  uint32_t threshold;
+  float scale;
+  uint32_t seed;
+  // the hash's part that is fixed per (batch, q-head) plane
+  __device__ __forceinline__ uint32_t base(int bh) const {
+    return static_cast<uint32_t>(bh) * kDropBhMul ^ seed * kDropSeedMul;
+  }
+};
+
+// row_mix = row C1 ^ base(bh), col_mix = col C2: whether the entry is kept.
+__device__ __forceinline__ bool keep_bits(uint32_t row_mix, uint32_t col_mix,
+                                          uint32_t threshold) {
+  uint32_t x = row_mix ^ col_mix;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >= threshold;
+}
+
 // Calls f(Tag<T>, Int<D>, Int<kMask>) for the runtime input type, head dim
 // (64 or 128) and mask code; the mask is float32 or of the inputs' type.
 // Returns what f returns, or cudaErrorInvalidValue for another combination.
@@ -201,6 +243,18 @@ int dispatch(int dtype, int d, int mask, F&& f) {
     if (mask == kMaskBF16) return by_dim(Tag<B>{}, Int<kMaskBF16>{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same, calling f(Tag<T>, Int<D>, Int<kMask>, Bool<kDrop>): the flash
+// kernels' dropout builds beside the ones without.
+template <bool B>
+using Bool = std::bool_constant<B>;
+template <typename F>
+int dispatch(int dtype, int d, int mask, bool drop, F&& f) {
+  return dispatch(dtype, d, mask, [&](auto t, auto dim, auto m) {
+    if (drop) return f(t, dim, m, Bool<true>{});
+    return f(t, dim, m, Bool<false>{});
+  });
 }
 
 
@@ -379,6 +433,10 @@ __device__ __forceinline__ void acc_to_tile(const float (&acc)[D / 2],
 // products, and the branches (first tile, interior or checked tiles) are
 // hoisted out of the loops into separate instantiations of the step.
 //
+// With kDrop the P that feeds P V keeps the entries of the dropout mask
+// (keep_bits; `drop_base` is Dropout::base of the block's plane), scaled by
+// drop.scale, after l has summed the undropped P, as _fwd_kernel does.
+//
 // With kPingPong the block's two consumer warpgroups (cw 0 and 1) take
 // turns to issue their products, on named barriers kTurnBarrier + cw, as
 // FlashAttention-3 does: warpgroup 1 issues tile t's after warpgroup 0 has
@@ -389,13 +447,13 @@ __device__ __forceinline__ void acc_to_tile(const float (&acc)[D / 2],
 constexpr int kTurnBarrier = 3;  // and 4; 1 and 2 are store_o's
 
 template <int D, int kN, int kMask, bool kOverlap, bool kPingPong,
-          typename K0, typename MaskPair>
+          bool kDrop = false, typename K0, typename MaskPair>
 __device__ __forceinline__ void fwd_consume(
     const uint8_t* sQ, const uint8_t* ring, int stage_bytes, int stages,
     int kv_tile_bytes, uint64_t* full, uint64_t* empty, int n_tiles,
     int n_active, int n_interior, int row0, int s, bool causal, float scale,
     int cw, K0 k0_of, MaskPair mask_pair, float (&acc)[D / 2],
-    float (&m)[2], float (&l)[2]) {
+    float (&m)[2], float (&l)[2], Dropout drop = {}, uint32_t drop_base = 0) {
   constexpr bool kLean = kMask == kNoMask;
   constexpr int kKVChunk = kN * 128;
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
@@ -497,6 +555,30 @@ __device__ __forceinline__ void fwd_consume(
     for (int i = 0; i < 2; ++i)
       l[i] = l[i] * alpha[i] + ((rs[i][0] + rs[i][1]) + (rs[i][2] + rs[i][3]));
   };
+  // dropout of P(t) in place, after l has summed it and P(t - 1) V(t - 1)
+  // has retired, so the hash's registers are not live beside that
+  // product's operands
+  auto drop_p = [&](int t) {
+    const uint32_t col0 =
+        static_cast<uint32_t>(k0_of(t) + 2 * tq) * kDropColMul;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t row =
+            static_cast<uint32_t>(row0 + r_l + 8 * i) * kDropRowMul ^
+            drop_base;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * i + e];
+          x = keep_bits(row, col0 + static_cast<uint32_t>(8 * j + e) *
+                                        kDropColMul,
+                        drop.threshold)
+                  ? x * drop.scale
+                  : 0.f;
+        }
+      }
+  };
   // one tile: S(t) and P(t - 1) V(t - 1) issued, the softmax of S(t), then
   // O rescaled and P(t) ready for the next step's product
   auto step = [&](int t, auto checks, auto first) {
@@ -531,6 +613,7 @@ __device__ __forceinline__ void fwd_consume(
         acc[4 * j + 2 * i] *= alpha[i];
         acc[4 * j + 2 * i + 1] *= alpha[i];
       }
+    if constexpr (kDrop) drop_p(t);
 #pragma unroll
     for (int kk = 0; kk < kN / 16; ++kk) hopper::to_a_frag(sc, kk, a[kk]);
     if constexpr (!kOverlap) {

@@ -35,6 +35,9 @@ import tempfile
 from .attn_ab import B, D, H, S, bigbird_tiles, packed_doc_mask, time_ms
 
 KERNELS = r"(flash_fwd_wgmma|flash_bwd_\w+?_wgmma|block_sparse_fwd_wgmma)"
+# the flash entry points' dropout arguments (flag, threshold, scale, seed)
+# for the builds without dropout
+NO_DROPOUT = (0, 0, 1.0, 0)
 
 
 def ptxas_notes(log):
@@ -108,7 +111,7 @@ def forward_cases(libs, gen, seed, rec_of):
                 return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
                           out.data_ptr(), lse.data_ptr(), B, s, H, H, 1, D,
                           int(causal), 1.0 / math.sqrt(D), 1, mask_code,
-                          stream)
+                          *NO_DROPOUT, stream)
 
             err = run()
             torch.cuda.synchronize()
@@ -149,7 +152,7 @@ def backward_cases(libs, gen, seed, rec_of):
                 getattr(lib, fn).argtypes = argtypes
             dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
             tail = (B, S, H, H, 1, D, int(causal), scale, 1, mask_code,
-                    stream)
+                    *NO_DROPOUT, stream)
 
             def run_dq():
                 return lib.flash_attention_bwd_dq(

@@ -163,9 +163,19 @@ def test_dense_route_warns_and_matches_jax(kind, causal):
 
 
 def test_dropout_raises_unless_not_training():
-    q = torch.zeros(1, 8, 2, D)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        port_F.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
+    # dropout is ported: a rate outside [0, 1) raises, a rate in it drops
+    # by the kernels' hash mask of a seed drawn from the generator, and
+    # training=False applies none
+    q = torch.randn(1, 8, 2, D, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="dropout_p"):
+        port_F.scaled_dot_product_attention(q, q, q, dropout_p=1.0)
+    gen = torch.Generator().manual_seed(5)
+    seed = port_F.draw_seed(torch.Generator().manual_seed(5))
+    out = port_F.scaled_dot_product_attention(q, q, q, dropout_p=0.5,
+                                              generator=gen)
+    ref, _ = flash_attention_plain(q, q, q, False, None, 0.5, seed)
+    assert torch.equal(out, ref)
+    assert not torch.equal(out, port_F.scaled_dot_product_attention(q, q, q))
     out = port_F.scaled_dot_product_attention(q, q, q, dropout_p=0.1,
                                               training=False)
     assert torch.equal(out, port_F.scaled_dot_product_attention(q, q, q))
