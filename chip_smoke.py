@@ -11,7 +11,8 @@ Phases, each printing JSON lines (any failure exits non-zero):
    (registers, spills, serialised wgmma) and the shared memory of each
    bf16 tensor-core build; a forward or block-sparse build that spills or
    serialises its products fails (the forward's builds that read a mask
-   from global memory excepted).
+   from global memory excepted), and so does any RMSNorm build that
+   spills.
 2. kernels: each kernel against its plain PyTorch version on the card,
    case by case with the tolerance stated (and, for the backward and AdamW
    kernels and one forward and one block-sparse case, two launches bit for
@@ -22,6 +23,13 @@ Phases, each printing JSON lines (any failure exits non-zero):
    training shape) beside its plain version, one PyTorch library call, and
    the card's bound for the same work; the whole flash backward (delta,
    dQ, dK/dV) is timed beside SDPA's backward, causal and masked. The
+   RMSNorm kernels run every build their plans choose (vector builds at
+   Llama widths 4096, 5120, 8192 and past them, bf16 and float32; the
+   general builds at h 1001, 51,200 and two bytes into a buffer; one row;
+   the decode shape), each build checked against the plan, two launches
+   bit for bit; the forward is timed at [2048, 4096], [8192, 4096] and
+   [4, 1, 4096], the backward at [8192, 4096] (its row pass and column sum
+   apart from the train phase's profile, whose norms have that shape). The
    flash kernels' dropout builds: cases against the plain versions with
    the same seed (bf16 and float32, causal or not, 12:12 and 32:8 heads,
    s 512, 300 and 2048, d 64 and 128, with and without a float32 mask), a
@@ -46,16 +54,17 @@ Phases, each printing JSON lines (any failure exits non-zero):
    requests of 512 prompt tokens and 32 greedy new tokens through
    LlamaForCausalLM.generate; the launch counts prove the path ran the
    kernels, and the profile of one prefill that its attention ran the
-   bf16 tensor-core forward only. Prefill time, decode tokens/s and peak
+   bf16 tensor-core forward only and of prefill and decode that the norms
+   ran the RMSNorm vector build. Prefill time, decode tokens/s and peak
    memory are reported, and a short profile of one prefill and one decode
    step is printed.
 5. train: Llama-2-7B width at 8 of its 32 layers trains 5 steps of
    4 x 2048 tokens (AdamW, amp.decorate O2 bf16, recompute, TrainStep);
    the launch counts of one step prove the path ran every kernel, and its
    profile that the forward and the backward ran the bf16 tensor-core
-   builds only. Step time, tokens/s, MFU, peak memory, the device's idle
-   share, the top kernels of one profiled step and every loss are
-   reported.
+   builds only and the norms the RMSNorm vector builds. Step time,
+   tokens/s, MFU, peak memory, the device's idle share, the top kernels
+   of one profiled step and every loss are reported.
 5b. train_packed: the same path trains 3 steps on packed documents under a
    float32 [4, 1, 2048, 2048] block-diagonal causal mask (document lengths
    drawn from --seed); the launch counts of one step prove the masked
@@ -242,6 +251,9 @@ def phase_device():
            if held_to_no_spill(n) and any(faulty(x) for x in notes)}
     if bad:
         fail(f"wgmma builds spill or serialise: {bad}")
+    rms = ptxas.get("rms_norm", [])
+    if any(faulty(x) for x in rms) or (build_s and not rms):
+        fail(f"RMSNorm builds spill (or went unreported): {rms}")
 
 
 def faulty(note):
@@ -348,22 +360,49 @@ def flash_case(gen, dtype, causal, hq, hkv, s, d, b=2, twice=False):
     return (q, k, v), rec
 
 
-def rms_case(gen, dtype, shape):
+def rms_inputs(gen, dtype, shape, count, offset):
+    """`count` random tensors of `shape`; with `offset`, views that start
+    one element into their buffers (not 16-byte aligned)."""
+    n = math.prod(shape)
+    return [torch.randn(n + 1, generator=gen, device="cuda").to(dtype)
+            [int(offset):n + int(offset)].view(shape) for _ in range(count)]
+
+
+def rms_build(plan):
+    """A plan's build, as its test and the profiles name it."""
+    return "general" if plan.vpt == 0 else f"vector, {plan.vpt} a thread"
+
+
+def rms_case(gen, dtype, shape, vector=True, offset=False):
+    """The forward against its plain version, and a second launch bit for
+    bit; the wrapper's plan must pick the vector build (or the general
+    one)."""
     from paddle_tpu_torch.ops.hopper import rms_norm, rms_norm_plain
-    x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    from paddle_tpu_torch.ops.hopper.fused_ops import (_aligned,
+                                                       _sm_count,
+                                                       rms_fwd_plan)
+    (x,) = rms_inputs(gen, dtype, shape, 1, offset)
     w = (1 + 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
          ).to(dtype)
     y, rstd = rms_norm(x, w, 1e-5)
+    again = rms_norm(x, w, 1e-5)
     ref, ref_rstd = rms_norm_plain(x, w, 1e-5)
     torch.cuda.synchronize()
+    plan = rms_fwd_plan(x.numel() // shape[-1], shape[-1], dtype,
+                        _aligned(x, w, y), _sm_count(x.device.index))
     rec = {"kernel": "rms_norm", "dtype": str(dtype)[6:],
-           "shape": list(shape), "max_abs_err": max_err(y, ref),
+           "shape": list(shape), "offset_bytes": x.element_size() * offset,
+           "build": rms_build(plan), "threads": plan.threads,
+           "max_abs_err": max_err(y, ref),
            "tol": tolerance(ref, dtype),
            "rstd_max_abs_err": max_err(rstd, ref_rstd),
-           "rstd_tol": tolerance(ref_rstd, torch.float32)}
+           "rstd_tol": tolerance(ref_rstd, torch.float32),
+           "bit_identical": torch.equal(y, again[0]) and
+           torch.equal(rstd, again[1])}
     emit(rec)
     if not (rec["max_abs_err"] <= rec["tol"]
-            and rec["rstd_max_abs_err"] <= rec["rstd_tol"]):
+            and rec["rstd_max_abs_err"] <= rec["rstd_tol"]
+            and rec["bit_identical"] and (plan.vpt > 0) == vector):
         fail(f"rms_norm disagrees with its plain version: {rec}")
     return (x, w), rec
 
@@ -400,23 +439,30 @@ def flash_bwd_case(gen, dtype, causal, hq, hkv, s, d, b=2, qkv=None):
     return (q, k, v, out, dout, lse), rec
 
 
-def rms_bwd_case(gen, dtype, shape):
+def rms_bwd_case(gen, dtype, shape, vector=True, offset=False):
+    """The backward against its plain version and a second launch bit for
+    bit; the plan must pick the vector row pass (or the general one)."""
     from paddle_tpu_torch.ops.hopper import (rms_norm, rms_norm_bwd,
                                              rms_norm_bwd_plain)
-    x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    from paddle_tpu_torch.ops.hopper.fused_ops import (_aligned,
+                                                       _sm_count,
+                                                       rms_bwd_plan)
+    x, g = rms_inputs(gen, dtype, shape, 2, offset)
     w = (1 + 0.1 * torch.randn(shape[-1], generator=gen, device="cuda")
          ).to(dtype)
-    g = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
     _, rstd = rms_norm(x, w, 1e-5)
     got = rms_norm_bwd(x, w, g, rstd)
     again = rms_norm_bwd(x, w, g, rstd)
     ref = rms_norm_bwd_plain(x, w, g, rstd)
     torch.cuda.synchronize()
+    plan = rms_bwd_plan(x.numel() // shape[-1], shape[-1], dtype,
+                        _aligned(x, w, g), _sm_count(x.device.index))
     rec = {"kernel": "rms_norm_bwd", "dtype": str(dtype)[6:],
-           "shape": list(shape),
+           "shape": list(shape), "offset_bytes": x.element_size() * offset,
+           "build": rms_build(plan), "plan": plan._asdict(),
            "bit_identical": all(torch.equal(a, c)
                                 for a, c in zip(got, again))}
-    ok = rec["bit_identical"]
+    ok = rec["bit_identical"] and (plan.vpt > 0) == vector
     for name, a, r in zip(("dx", "dw"), got, ref):
         rec[f"{name}_max_abs_err"] = max_err(a, r)
         rec[f"{name}_tol"] = bwd_tolerance(r, dtype)
@@ -493,11 +539,20 @@ def phase_kernels(seed):
                                    b=1 if s == 2048 else 2)
     flash_case(gen, bf16, True, 32, 8, 1000, 128, twice=True)
     for dtype, shape in ((bf16, (4 * 2048, 4096)), (bf16, (4 * 512, 4096)),
-                         (bf16, (4, 1, 4096)),
-                         (bf16, (37, 4096)), (torch.float32, (37, 4096)),
-                         (torch.float32, (3, 5, 1000)),
-                         (torch.float32, (4, 1, 4096))):
+                         (torch.float32, (4 * 512, 4096))):
         rms_case(gen, dtype, shape)
+    # every build: Llama widths, one row, the decode shape, h 1000 (125
+    # bf16 vectors: a ragged last warp), past 2048 vectors a row (8 a
+    # thread); general: h 1001, a view two bytes in, past the budget
+    for dtype in (bf16, torch.float32):
+        for shape in ((37, 4096), (37, 5120), (37, 8192), (1, 4096),
+                      (4, 1, 4096), (3, 5, 1000), (8, 16384)):
+            rms_case(gen, dtype, shape)
+        rms_case(gen, dtype, (3, 5, 1001), vector=False)
+        rms_case(gen, dtype, (37, 4096), vector=False, offset=True)
+        rms_case(gen, dtype, (2, 51200), vector=False)
+    rms_case(gen, bf16, (4, 32768))
+    rms_case(gen, torch.float32, (4, 32768), vector=False)
 
     # the serving path's shapes: prefill attention (4 x 512, 32 heads,
     # d 128, causal, bf16) and the prefill/decode norms
@@ -522,7 +577,7 @@ def phase_kernels(seed):
     del q, k, v, qt, kt, vt
 
     rms = None
-    for shape in ((4 * 512, 4096), (4, 1, 4096)):
+    for shape in ((4 * 512, 4096), (4 * 2048, 4096), (4, 1, 4096)):
         (x, w), rrec = rms_case(gen, bf16, shape)
         n = x.numel()
         rows = n // x.shape[-1]
@@ -532,7 +587,8 @@ def phase_kernels(seed):
             "name": "rms_norm", "route": "cuda",
             "source": "paddle_tpu_torch/ops/hopper/csrc/rms_norm.cu",
             "replaces": "paddle_tpu/ops/pallas/fused_ops.py:36",
-            "shape": f"x {list(shape)} bf16",
+            "shape": f"x {list(shape)} bf16", "build": rrec["build"],
+            "threads": rrec["threads"],
             "max_abs_err": rrec["max_abs_err"], "tol": rrec["tol"],
             "ms": time_ms(lambda: rms_norm(x, w, 1e-5)),
             "plain_ms": time_ms(lambda: rms_norm_plain(x, w, 1e-5)),
@@ -543,7 +599,11 @@ def phase_kernels(seed):
         if rms is None:
             rms = rec                      # the summary line's shape
         else:
-            emit({"phase": "kernels", "timing_at_decode_shape": rec})
+            # the train step's shape (33 launches a step) and decode's
+            key = "train_shape" if shape[0] > 4 else "decode_shape"
+            rms[key] = {k: rec[k] for k in ("shape", "build", "threads",
+                                            "ms", "plain_ms", "bound_ms",
+                                            "library_ms")}
         del x, w
     train_records, flash["train_causal"] = train_kernels(gen)
     records = [flash, rms] + train_records
@@ -585,6 +645,19 @@ def train_kernels(gen):
                          (torch.float32, (8192, 4096)),
                          (torch.float32, (300, 1000))):
         rms_bwd_case(gen, dtype, shape)
+    # every build: Llama widths, one row, the decode shape, up to 2048
+    # vectors a row (4 a thread); general: h 1001, a view two bytes in, the
+    # widest row (51,200) and past the vector budget
+    for dtype in (bf16, torch.float32):
+        for shape in ((300, 4096), (300, 5120), (300, 8192), (1, 4096),
+                      (4, 1, 4096)):
+            rms_bwd_case(gen, dtype, shape)
+        rms_bwd_case(gen, dtype, (300, 1001), vector=False)
+        rms_bwd_case(gen, dtype, (300, 4096), vector=False, offset=True)
+        rms_bwd_case(gen, dtype, (64, 51200), vector=False)
+    rms_bwd_case(gen, bf16, (37, 16384))
+    rms_bwd_case(gen, torch.float32, (37, 8192))
+    rms_bwd_case(gen, torch.float32, (37, 16384), vector=False)
     for n, lowp in ((11008 * 4096, True), (1000, True), (1003, False)):
         for step in (1, 10):
             for wd in (0.01, 0.0):
@@ -654,7 +727,8 @@ def train_kernels(gen):
         "name": "rms_norm_bwd", "route": "cuda",
         "source": "paddle_tpu_torch/ops/hopper/csrc/rms_norm.cu",
         "replaces": "paddle_tpu/ops/pallas/fused_ops.py:45",
-        "shape": "x, g [8192, 4096] bf16",
+        "shape": "x, g [8192, 4096] bf16", "build": rrec["build"],
+        "plan": rrec["plan"],
         "max_abs_err": max(rrec["dx_max_abs_err"], rrec["dw_max_abs_err"]),
         "ms": time_ms(lambda: rms_norm_bwd(x, w, g, rstd)),
         "plain_ms": time_ms(lambda: rms_norm_bwd_plain(x, w, g, rstd)),
@@ -1436,6 +1510,8 @@ def phase_serve(seed):
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         profile = profile_steps(model, ids, s_max)
+    for step in ("prefill", "decode_step"):
+        rms_vector_only(profile[step], step, ["rms_norm_fwd_vec"])
     if profile["prefill"]["flash_fwd_kernels"] != ["flash_fwd_wgmma"]:
         fail(f"prefill forward kernels "
              f"{profile['prefill']['flash_fwd_kernels']}, expected the wgmma "
@@ -1488,6 +1564,12 @@ def profile_one(fn, calls=1, attempts=3):
                              for m in sorted({m for k, _, _ in rows
                                               for m in re.findall(
                                                   FLASH_BUILD, k)})},
+            # each RMSNorm build: [device ms, records]
+            "rms_norm_builds": {m: [sum(t for k, t, _ in rows if m in k),
+                                    sum(n for k, _, n in rows if m in k)]
+                                for m in sorted({m for k, _, _ in rows
+                                                 for m in re.findall(
+                                                     RMS_BUILD, k)})},
             **{f"{what}_kernels": sorted({m for k, _, _ in rows
                                           for m in re.findall(pat, k)})
                for what, pat in (("flash_fwd", r"flash_fwd_\w+"),
@@ -1498,6 +1580,16 @@ def profile_one(fn, calls=1, attempts=3):
 
 # a flash kernel's name with its template arguments in a profiler record
 FLASH_BUILD = r"flash_(?:fwd|bwd)_\w+<[^<>]*>"
+RMS_BUILD = r"rms_norm_\w+<[^<>]*>"
+
+
+def rms_vector_only(profile, what, kernels):
+    """Fail unless the profile's RMSNorm kernels are exactly `kernels`
+    (names without template arguments): the main path's norms take the
+    vector builds, never the general ones."""
+    got = sorted({b.split("<")[0] for b in profile["rms_norm_builds"]})
+    if got != sorted(kernels):
+        fail(f"{what} RMSNorm kernels {got}, expected {sorted(kernels)}")
 
 
 def dropout_build(build):
@@ -1584,6 +1676,8 @@ def phase_train(seed, packed=False):
           "profile_step": profile})
     if launches != expect:
         fail(f"train launch counts {launches}, expected {expect}")
+    rms_vector_only(profile, "train", ["rms_norm_bwd_vec", "rms_norm_dw_sum",
+                                       "rms_norm_fwd_vec"])
     # bf16 gradients go through the tensor-core builds, never the float32
     # FMA kernels (flash_bwd_dq_kernel, flash_bwd_dkv_kernel)
     if profile["flash_bwd_kernels"] != ["flash_bwd_dkv_wgmma",
@@ -1598,7 +1692,7 @@ def phase_train(seed, packed=False):
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         fail(f"train losses not finite and falling: {losses}")
-    return launches
+    return launches, profile
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -1947,8 +2041,8 @@ def main(argv=None):
     phase_train_width(args.seed, masked=True)
     phase_gpt2_width(args.seed)
     serve = phase_serve(args.seed)
-    train = phase_train(args.seed)
-    packed = phase_train(args.seed, packed=True)
+    train, train_profile = phase_train(args.seed)
+    packed, _ = phase_train(args.seed, packed=True)
     gpt2 = phase_gpt2_train(args.seed)
     sparse = phase_sparse(args.seed)
     for k in kernels:
@@ -1969,6 +2063,17 @@ def main(argv=None):
             k["launches_per_packed_train_step"] = packed[name]
         if gpt2[name] and train[name]:
             k["launches_per_gpt2_train_step"] = gpt2[name]
+        if name == "rms_norm_bwd":
+            # its two kernels apart: device ms per launch in the profiled
+            # train step, whose norms are [8192, 4096] bf16
+            apart = {b: ms / n for b, (ms, n)
+                     in train_profile["rms_norm_builds"].items()
+                     if "_bwd_" in b or "_dw_" in b}
+            k["row_pass_ms"] = next((v for b, v in apart.items()
+                                     if "_bwd_" in b), "not measured")
+            k["column_sum_ms"] = next((v for b, v in apart.items()
+                                       if "_dw_" in b), "not measured")
+            k["apart_from"] = "the profiled train step"
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

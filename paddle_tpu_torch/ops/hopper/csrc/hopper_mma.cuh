@@ -10,7 +10,8 @@
 //     arrive);
 //   * 4-byte cp.async copies with zero fill that arrive on an mbarrier;
 //   * TMA: 3-D and 4-D tensor loads into shared memory and 4-D stores out of
-//     it, and the host-side encoding of a tensor map.
+//     it, one-dimensional bulk loads, and the host-side encoding of a tensor
+//     map.
 //
 // Layout the descriptors assume (the one TMA writes for a box whose inner
 // extent is 64 bf16 = 128 bytes under CU_TENSOR_MAP_SWIZZLE_128B): rows of
@@ -280,6 +281,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// `bytes` (a multiple of 16) from global to shared memory, both 16-byte
+// aligned, as TMA transactions counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 // Elements of the box outside the tensor are not written.

@@ -9,6 +9,8 @@ Counterpart: ``paddle_tpu/ops/pallas/fused_ops.py`` (``_rms_fwd_kernel``,
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -21,16 +23,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _RMS_SIGNATURES = {
-    "rms_norm_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
-    "rms_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rms_norm_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P],
+    "rms_norm_bwd": [_P, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
 }
 _ADAMW_SIGNATURES = {
     "adamw_update": [_P, _P, _P, _P, _P, ctypes.c_longlong] + [_F] * 9 +
                     [_I, _I, _P],
 }
-# row-pass blocks of the RMSNorm backward (4 per SM of an H100), each with
-# its own float32 dw partial of the row width in shared memory
-_RMS_BWD_PARTS = 132 * 4
+# the RMSNorm backward's general build keeps a float32 dw partial of the row
+# width in shared memory
 _RMS_BWD_MAX_WIDTH = 200 * 1024 // 4
 
 
@@ -52,6 +53,93 @@ def _stream(t):
 
 # -- RMSNorm ------------------------------------------------------------------
 
+H100_SMS = 132
+_VEC_BYTES = 16
+_VEC_MAX_THREADS = 512          # kVecThreads in csrc/rms_norm.cu
+_GENERAL_THREADS = 256
+
+
+class RMSFwdPlan(NamedTuple):
+    """The forward's build: ``vpt`` 16-byte vectors per thread (0: the
+    general build, one 256-thread block per row) and ``threads`` per block.
+    The vector build's grid is as many blocks as fit on the card at once
+    (the kernel's occupancy), at most one per row."""
+    vpt: int
+    threads: int
+
+
+class RMSBwdPlan(NamedTuple):
+    """The backward's builds: the row pass (``vpt`` as the forward's, 1, 2
+    or 4; ``threads`` per block; ``parts`` blocks, each writing one float32
+    dw partial of width h) and the column sum (``sum_cols`` columns per
+    256-thread block, ceil(h / sum_cols) blocks)."""
+    vpt: int
+    threads: int
+    parts: int
+    sum_cols: int
+
+
+def _round32(n):
+    return -(-n // 32) * 32
+
+
+def _vectors(h, dtype, aligned):
+    """16-byte vectors per row, or 0 when the rows are not whole vectors
+    or a pointer is not 16-byte aligned."""
+    vec = _VEC_BYTES // dtype.itemsize
+    return h // vec if aligned and h % vec == 0 else 0
+
+
+@functools.lru_cache(maxsize=256)
+def rms_fwd_plan(rows, h, dtype, aligned, sms=H100_SMS):
+    """Which forward build runs ``[rows, h]`` of ``dtype``; ``aligned``:
+    x, w and y are 16-byte aligned. The vector build takes rows of whole
+    16-byte vectors up to 4096 of them (h 32,768 in bf16, 16,384 in
+    float32): 4 vectors a thread, 8 past 2048 vectors, and 1 for rows of
+    fewer than 128 vectors or when there are fewer rows than SMs (the
+    decode shape: each row spread over up to 512 threads, so its loads go
+    out in one round)."""
+    nv = _vectors(h, dtype, aligned)
+    if nv == 0 or nv > 8 * _VEC_MAX_THREADS:
+        return RMSFwdPlan(0, _GENERAL_THREADS)
+    if nv < 128 or (rows < sms and nv <= _VEC_MAX_THREADS):
+        vpt = 1
+    else:
+        vpt = 4 if nv <= 4 * _VEC_MAX_THREADS else 8
+    return RMSFwdPlan(vpt, _round32(-(-nv // vpt)))
+
+
+@functools.lru_cache(maxsize=256)
+def rms_bwd_plan(rows, h, dtype, aligned, sms=H100_SMS):
+    """Which backward builds run ``[rows, h]`` of ``dtype``; ``aligned``:
+    x, w and g are 16-byte aligned. The vector row pass takes rows of whole
+    16-byte vectors up to 2048 of them (h 16,384 in bf16, 8,192 in
+    float32) with the fewest vectors a thread (1, 2 or 4) that keep a
+    block within 512 threads, one block per SM (``parts`` = min(rows,
+    sms): 2.1 MB of partials at h 4096); its ring of 3 stages of an x and
+    a g row takes at most 192 KiB. The general row pass: min(rows, 4 sms)
+    blocks (four of 256 threads fit an SM at h 4096). The column sum takes
+    32 columns a block, or 16 or 8 while that leaves fewer blocks than
+    SMs."""
+    cols = 32
+    while cols > 8 and -(-h // cols) < sms:
+        cols //= 2
+    nv = _vectors(h, dtype, aligned)
+    if nv == 0 or nv > 4 * _VEC_MAX_THREADS:
+        return RMSBwdPlan(0, _GENERAL_THREADS, min(rows, 4 * sms), cols)
+    vpt = next(v for v in (1, 2, 4) if nv <= v * _VEC_MAX_THREADS)
+    return RMSBwdPlan(vpt, _round32(-(-nv // vpt)), min(rows, sms), cols)
+
+
+def _aligned(*tensors):
+    return all(t.data_ptr() % _VEC_BYTES == 0 for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
     """y = x * rsqrt(mean(x^2) + eps) * w in float32, rounded to x's type
     once (the TPU kernel's rounding); also returns rstd, float32
@@ -68,7 +156,8 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
     :class:`RMSNormFunction`.
 
     A CPU tensor takes :func:`rms_norm_plain`. A CUDA tensor launches the
-    kernel on the current stream or raises; there is no fallback.
+    build :func:`rms_fwd_plan` picks on the current stream or raises; there
+    is no fallback.
     """
     h = x.shape[-1]
     if weight.shape != (h,):
@@ -87,10 +176,13 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
                        device=x.device)
     if rows == 0 or h == 0:
         return y, rstd
+    sms = _sm_count(x.device.index)
+    plan = rms_fwd_plan(rows, h, x.dtype, _aligned(x, weight, y), sms)
     lib = _build.load("rms_norm", _RMS_SIGNATURES)
     err = lib.rms_norm_fwd(x.data_ptr(), weight.data_ptr(), y.data_ptr(),
                            rstd.data_ptr(), rows, h, float(eps),
-                           _DTYPE_CODES[x.dtype], _stream(x))
+                           _DTYPE_CODES[x.dtype], plan.vpt, plan.threads,
+                           sms, _stream(x))
     _build.check(lib, err, "rms_norm_fwd")
     rms_norm.launches += 1
     return y, rstd
@@ -118,8 +210,9 @@ def rms_norm_bwd(x, w, g, rstd):
     ``w``, the output gradient ``g`` (x's type and shape) and ``rstd``.
 
     A CPU tensor takes :func:`rms_norm_bwd_plain`. A CUDA tensor launches
-    the row pass and the column sum of dw's partials on the current stream
-    (counted as one launch) or raises. Widths up to 51,200.
+    the row pass and the column sum of dw's partials that
+    :func:`rms_bwd_plan` picks on the current stream (counted as one
+    launch) or raises. Widths up to 51,200.
     """
     h = x.shape[-1]
     if g.shape != x.shape or w.shape != (h,) or \
@@ -145,13 +238,16 @@ def rms_norm_bwd(x, w, g, rstd):
     if rows == 0 or h == 0:
         return dx, torch.zeros_like(w)
     dw = torch.empty_like(w)
-    parts = min(rows, _RMS_BWD_PARTS)
-    dw_part = torch.empty(parts, h, dtype=torch.float32, device=x.device)
+    plan = rms_bwd_plan(rows, h, x.dtype, _aligned(x, w, g),
+                        _sm_count(x.device.index))
+    dw_part = torch.empty(plan.parts, h, dtype=torch.float32,
+                          device=x.device)
     lib = _build.load("rms_norm", _RMS_SIGNATURES)
     err = lib.rms_norm_bwd(x.data_ptr(), w.data_ptr(), g.data_ptr(),
                            rstd.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-                           dw_part.data_ptr(), rows, h, parts,
-                           _DTYPE_CODES[x.dtype], _stream(x))
+                           dw_part.data_ptr(), rows, h, plan.parts,
+                           _DTYPE_CODES[x.dtype], plan.vpt, plan.threads,
+                           plan.sum_cols, _stream(x))
     _build.check(lib, err, "rms_norm_bwd")
     rms_norm_bwd.launches += 1
     return dx, dw

@@ -13,8 +13,8 @@ copy is built with ``nvcc`` and the package's flags, all at once, into a
 temporary directory; each build's ptxas notes (spills, serialised
 ``wgmma``) are printed. Then each copy's kernels are checked against their
 plain versions (one bf16 ulp at the largest magnitude,
-``chip_smoke.tolerance``) and timed (``attn_ab.time_ms``), the copies in
-turn, at ``attn_ab.py``'s shapes: the forward at [4, 512, 32, 128] bf16
+``chip_smoke.tolerance``) and timed (``kernel_ab.time_ms``), the copies in
+turn, at ``kernel_ab.py``'s shapes: the forward at [4, 512, 32, 128] bf16
 causal and at [4, 2048, 32, 128] causal, non-causal and non-causal under
 the float32 packed-document mask; dQ and dK/dV at [4, 2048, 32, 128]
 causal, non-causal and masked; block-sparse at [4, 4096, 12, 64] under
@@ -32,7 +32,7 @@ import subprocess
 import sys
 import tempfile
 
-from .attn_ab import B, D, H, S, bigbird_tiles, packed_doc_mask, time_ms
+from .kernel_ab import B, D, H, S, bigbird_tiles, packed_doc_mask, time_ms
 
 KERNELS = r"(flash_fwd_wgmma|flash_bwd_\w+?_wgmma|block_sparse_fwd_wgmma)"
 # the flash entry points' dropout arguments (flag, threshold, scale, seed)

@@ -1,6 +1,6 @@
-"""Attention kernel times of two checkouts of the port, on one Hopper card.
+"""Kernel times of two checkouts of the port, on one Hopper card.
 
-    python3 -m paddle_tpu_torch.tools.attn_ab --trees PARENT CHANGE \
+    python3 -m paddle_tpu_torch.tools.kernel_ab --trees PARENT CHANGE \
         [--pairs 2] [--seed 0]
 
 Two versions of a kernel are compared only within one call on one card
@@ -17,7 +17,15 @@ median of 10 (``chip_smoke.time_ms``), at ``chip_smoke.py``'s shapes:
   from --seed);
 - the dQ and the dK/dV kernels at the train shape, causal and masked;
 - the block-sparse forward at q, k, v [4, 4096, 12, 64] bf16 under the
-  BigBird-base tile pattern (``chip_smoke.bigbird_tiles``, from --seed).
+  BigBird-base tile pattern (``chip_smoke.bigbird_tiles``, from --seed);
+- the RMSNorm forward at x [2048, 4096] (prefill), [8192, 4096] (a train
+  step's rows) and [4, 1, 4096] (decode), bf16, and its backward (row pass
+  and column sum, one counted launch) at [8192, 4096], and the two
+  kernels of the backward apart: device ms per launch over 10 calls in one
+  ``torch.profiler`` session (L2 not flushed; "not measured" when the
+  session records no device activity);
+- the RMSNorm backward's general build at [8192, 4096] bf16: x and g views
+  two bytes into their buffers (``rms_bwd_general_ms``).
 
 It prints one JSON line per run, then a summary: each tree's medians over
 its runs and the ratio of the first tree's to the second's.
@@ -95,7 +103,8 @@ def worker(seed):
     from paddle_tpu_torch.ops.hopper import (block_sparse_attention_fwd,
                                              flash_attention,
                                              flash_attention_bwd_dkv,
-                                             flash_attention_bwd_dq)
+                                             flash_attention_bwd_dq,
+                                             rms_norm, rms_norm_bwd)
     from paddle_tpu_torch.ops.hopper.flash_attention import _delta
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -121,7 +130,46 @@ def worker(seed):
                .to(bf16) for _ in range(3))
     rec["block_sparse_ms"] = time_ms(
         lambda: block_sparse_attention_fwd(q, k, v, bm))
+    del q, k, v
+    w = (1 + 0.1 * torch.randn(4096, generator=gen, device="cuda")).to(bf16)
+    for label, shape in (("prefill", (2048, 4096)), ("train", (8192, 4096)),
+                         ("decode", (4, 1, 4096))):
+        x = torch.randn(*shape, generator=gen, device="cuda").to(bf16)
+        rec[f"rms_fwd_{label}_ms"] = time_ms(lambda: rms_norm(x, w, 1e-5))
+    x, g = (torch.randn(8192, 4096, generator=gen, device="cuda").to(bf16)
+            for _ in range(2))
+    _, rstd = rms_norm(x, w, 1e-5)
+    rec["rms_bwd_train_ms"] = time_ms(lambda: rms_norm_bwd(x, w, g, rstd))
+    rec.update(rms_bwd_apart(lambda: rms_norm_bwd(x, w, g, rstd)))
+    del x, g
+    x, g = (torch.randn(8192 * 4096 + 1, generator=gen, device="cuda")
+            .to(bf16)[1:].view(8192, 4096) for _ in range(2))
+    _, rstd = rms_norm(x, w, 1e-5)
+    rec["rms_bwd_general_ms"] = time_ms(lambda: rms_norm_bwd(x, w, g, rstd))
     print(json.dumps(rec), flush=True)
+
+
+def rms_bwd_apart(fn, calls=10):
+    """Device ms per launch of the RMSNorm backward's row pass and of its
+    column sum (the kernel named ``rms_norm_dw_*``), from one profile."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {"rms_bwd_row_pass_ms": "not measured",
+           "rms_bwd_column_sum_ms": "not measured"}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and "rms_norm_" in e.key and \
+                e.self_device_time_total > 0:
+            key = ("rms_bwd_column_sum_ms" if "rms_norm_dw_" in e.key
+                   else "rms_bwd_row_pass_ms")
+            out[key] = e.self_device_time_total / 1e3 / e.count
+    return out
 
 
 def run_tree(tree, seed):
@@ -132,10 +180,10 @@ def run_tree(tree, seed):
         cwd=tree, env=env, capture_output=True, text=True, timeout=900)
     if out.returncode != 0:
         sys.stderr.write(out.stderr[-4000:])
-        raise SystemExit(f"attn_ab: the run in {tree} failed")
+        raise SystemExit(f"kernel_ab: the run in {tree} failed")
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     if not rec["package"].startswith(tree + os.sep):
-        raise SystemExit(f"attn_ab: {tree} imported {rec['package']}")
+        raise SystemExit(f"kernel_ab: {tree} imported {rec['package']}")
     return rec
 
 
@@ -158,7 +206,8 @@ def main(argv=None):
             rec = run_tree(tree, args.seed)
             runs[tree].append(rec)
             print(json.dumps({"tree": tree, **rec}), flush=True)
-    keys = [k for k in runs[trees[0]][0] if k.endswith("_ms")]
+    keys = [k for k in runs[trees[0]][0] if k.endswith("_ms") and all(
+        isinstance(r[k], float) for t in trees for r in runs[t])]
     med = {t: {k: statistics.median(r[k] for r in runs[t]) for k in keys}
            for t in trees}
     print(json.dumps({"medians": med, "ratio_first_over_second": {
