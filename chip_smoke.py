@@ -30,6 +30,9 @@ Phases, each printing JSON lines (any failure exits non-zero):
    bit for bit; the forward is timed at [2048, 4096], [8192, 4096] and
    [4, 1, 4096], the backward at [8192, 4096] (its row pass and column sum
    apart from the train phase's profile, whose norms have that shape). The
+   batcher's shapes: the forward at one prompt a call at every bucket of
+   its traffic (64-1024), timed at [1, 512, 32, 128], and the RMSNorm
+   forward timed at its decode rows [8, 1, 4096]. The
    flash kernels' dropout builds: cases against the plain versions with
    the same seed (bf16 and float32, causal or not, 12:12 and 32:8 heads,
    s 512, 300 and 2048, d 64 and 128, with and without a float32 mask), a
@@ -58,6 +61,20 @@ Phases, each printing JSON lines (any failure exits non-zero):
    ran the RMSNorm vector build. Prefill time, decode tokens/s and peak
    memory are reported, and a short profile of one prefill and one decode
    step is printed.
+4b. batcher: Llama-2-7B (bf16, all 32 layers) serves 24 requests (prompts
+   of 64-768 tokens, 16-64 new tokens, drawn from --seed; 12 up front and
+   12 after the 5th step) through paddle_tpu_torch.inference.
+   ContinuousBatcher (8 slots, s_max 1024, the pow2 prompt ladder, greedy),
+   once eagerly and once with the decode step replayed as a CUDA graph.
+   Both must give the same tokens, every request its full length, the
+   tokens agree with the model's full forward and the bucketed prefills
+   with exact-length ones (6%: the 32-layer bf16 spread is ~4%); the
+   launch counts prove the admissions ran the flash forward and the norms
+   the RMSNorm kernel, and the profiles of 8 admissions and 8 steps (graph
+   replays, in the graphed run) that they ran the tensor-core forward and
+   the RMSNorm vector build only. Per mode: admissions, steps, tokens,
+   wall time, decode ms a step, tokens/s, TTFT, the idle share of a step
+   and peak memory.
 5. train: Llama-2-7B width at 8 of its 32 layers trains 5 steps of
    4 x 2048 tokens (AdamW, amp.decorate O2 bf16, recompute, TrainStep);
    the launch counts of one step prove the path ran every kernel, and its
@@ -519,13 +536,33 @@ def adamw_case(gen, n, step, wd, lowp):
     return rec
 
 
+def flash_timing(q, k, v, rec):
+    """The causal bf16 forward at q's shape, timed beside its plain version
+    and SDPA, with the card's bound; `rec` is the shape's checked case."""
+    from paddle_tpu_torch.ops.hopper import (flash_attention,
+                                             flash_attention_plain)
+    F = torch.nn.functional
+    b, s, hq, d = q.shape
+    pairs = s * (s + 1) // 2
+    f_bound, f_by = bound(4 * q.numel() * q.element_size() + b * hq * s * 4,
+                          4 * b * hq * d * pairs, H100_BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return {
+        "shape": f"q,k,v {list(q.shape)} bf16 causal",
+        "max_abs_err": rec["max_abs_err"], "tol": rec["tol"],
+        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
+        "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, True)),
+        "bound_ms": f_bound, "bound_by": f_by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+    }
+
+
 def phase_kernels(seed):
     """Every case, then timings at the serving and training paths' shapes.
     Returns the per-kernel records of the summary line (launches are filled
     in by the serve and train phases)."""
-    from paddle_tpu_torch.ops.hopper import (flash_attention,
-                                             flash_attention_plain, rms_norm,
-                                             rms_norm_plain)
+    from paddle_tpu_torch.ops.hopper import rms_norm, rms_norm_plain
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(seed)
     bf16 = torch.bfloat16
@@ -557,27 +594,27 @@ def phase_kernels(seed):
     # the serving path's shapes: prefill attention (4 x 512, 32 heads,
     # d 128, causal, bf16) and the prefill/decode norms
     (q, k, v), frec = flash_case(gen, bf16, True, 32, 32, 512, 128, b=4)
-    b, s, hq, d = q.shape
-    pairs = s * (s + 1) // 2
-    f_bound, f_by = bound(4 * q.numel() * q.element_size() + b * hq * s * 4,
-                          4 * b * hq * d * pairs, H100_BF16_FLOPS)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     flash = {
         "name": "flash_attention", "route": "cuda",
         "source": "paddle_tpu_torch/ops/hopper/csrc/flash_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:124",
-        "shape": "q,k,v [4, 512, 32, 128] bf16 causal",
-        "max_abs_err": frec["max_abs_err"], "tol": frec["tol"],
-        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
-        "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, True)),
-        "bound_ms": f_bound, "bound_by": f_by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
+        **flash_timing(q, k, v, frec),
     }
-    del q, k, v, qt, kt, vt
+    del q, k, v
+    # the batcher's admissions: one prompt at each pow2 bucket of its
+    # traffic (64 and 128 are one ragged or partial tile row), and at 73
+    # tokens, an exact-length prefill of the batcher phase's checks (a
+    # ragged tile); timed at 512
+    for s in (64, 73, 128, 256, 1024, 512):
+        (q, k, v), frec = flash_case(gen, bf16, True, 32, 32, s, 128, b=1)
+    flash["batcher_admission_shape"] = flash_timing(q, k, v, frec)
+    del q, k, v
 
     rms = None
-    for shape in ((4 * 512, 4096), (4 * 2048, 4096), (4, 1, 4096)):
+    for shape, key in (((4 * 512, 4096), None),
+                       ((4 * 2048, 4096), "train_shape"),
+                       ((4, 1, 4096), "decode_shape"),
+                       ((8, 1, 4096), "batcher_decode_shape")):
         (x, w), rrec = rms_case(gen, bf16, shape)
         n = x.numel()
         rows = n // x.shape[-1]
@@ -596,14 +633,15 @@ def phase_kernels(seed):
             "library_ms": time_ms(lambda: F.rms_norm(
                 x, (x.shape[-1],), w, 1e-5)),
         }
-        if rms is None:
+        if key is None:
             rms = rec                      # the summary line's shape
         else:
-            # the train step's shape (33 launches a step) and decode's
-            key = "train_shape" if shape[0] > 4 else "decode_shape"
+            # the train step's shape (33 launches a step), generate's
+            # decode and the batcher's
             rms[key] = {k: rec[k] for k in ("shape", "build", "threads",
-                                            "ms", "plain_ms", "bound_ms",
-                                            "library_ms")}
+                                            "max_abs_err", "tol", "ms",
+                                            "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}
         del x, w
     train_records, flash["train_causal"] = train_kernels(gen)
     records = [flash, rms] + train_records
@@ -1533,31 +1571,298 @@ def phase_serve(seed):
     return launches
 
 
-def profile_one(fn, calls=1, attempts=3):
-    """Device time by kernel over `calls` calls of fn. A session whose
-    trace holds no device activity at all lost its trace, not its
-    kernels (the launch counters say what ran): it is run again, up to
-    `attempts` sessions in all, and `attempts` in the result counts them."""
+# -- phase 4b ----------------------------------------------------------------
+
+# the batcher phase's configuration (and the default pow2 prompt ladder,
+# greedy picks)
+BATCHER = dict(max_batch=8, s_max=1024)
+# The batcher phase's logit checks are held to what the bf16 model itself
+# spreads, measured in the same run, not to a fixed tolerance:
+# - a bucketed prefill to its own exact-length prefill within that
+#   prompt's spread between the exact prefill at batch 1 and at batch 2
+#   (the same math at another row count), plus one bf16 step at the row's
+#   largest magnitude (PREFILL_MARGIN). The spread is 0 unless a prompt
+#   has fewer than 161 tokens: below that cuBLAS reduces the 11008 -> 4096
+#   product in another order at some row counts, and below 132 rows the
+#   RMSNorm forward takes its decode plan (tools/prefill_spread.py; PERF.md);
+# - the batcher's tokens to a full bf16 forward over prompt + generated
+#   within the float32 model's verdict on the bf16 forward's own picks:
+#   how far below the float32 top logit they lie, relative to the row's
+#   largest magnitude.
+PREFILL_MARGIN = 2.0 ** -8
+
+
+def batcher_traffic(seed, vocab):
+    """24 requests: prompt lengths uniform in [64, 768], max_new_tokens
+    uniform in [16, 64] and the prompts' tokens uniform over the vocabulary,
+    all drawn from `seed`."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(64, 769, 24)
+    news = rng.randint(16, 65, 24)
+    return [(rng.randint(0, vocab, n).astype(np.int64), int(m))
+            for n, m in zip(lengths, news)]
+
+
+def batcher_run(model, traffic, compile):
+    """Serve `traffic` through a new ContinuousBatcher: 12 requests up
+    front and 12 more after the 5th step, so that admission happens
+    mid-flight and slots are reused. The launch counters are set to 0 just
+    before and read just after. Returns (each request's full sequence, the
+    run's report, the batcher)."""
+    from paddle_tpu_torch.inference import ContinuousBatcher
+    from paddle_tpu_torch.observability.metrics import get_registry
+    from paddle_tpu_torch.ops.hopper import launch_counts, reset_launch_counts
+    reg = get_registry()
+    reg.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b = ContinuousBatcher(model, compile=compile, **BATCHER)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [b.submit(p, n) for p, n in traffic[:12]]
+    early = []
+    for _ in range(5):
+        early += b.step()
+    rids += [b.submit(p, n) for p, n in traffic[12:]]
+    outs = b.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    outs.update({rid: b.pop_result(rid) for rid in early})
+    stats = b.stats()
+
+    def dense(name):
+        return reg.get(name).labels(engine="dense")
+
+    step_s = dense("serving_step_seconds")
+    ttft_s = dense("serving_ttft_seconds")
+    report = {
+        "compile": compile, "max_batch": BATCHER["max_batch"],
+        "s_max": BATCHER["s_max"],
+        "admissions": dense("serving_admissions_total").value,
+        "steps": stats["steps"], "tokens": stats["generated_tokens"],
+        "wall_s": wall, "tokens_per_s": stats["generated_tokens"] / wall,
+        # the decode dispatch alone (the step's admissions excluded), from
+        # the batcher's serving_step_seconds; the first graphed step holds
+        # the capture
+        "decode_ms_per_step": step_s.quantile(0.5) * 1e3,
+        "decode_ms_first_step_or_max": step_s.quantile(1.0) * 1e3,
+        "ttft_ms_median": ttft_s.quantile(0.5) * 1e3,
+        "ttft_ms_max": ttft_s.quantile(1.0) * 1e3,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "wrapper_counts": launches,
+        "captures": getattr(b._step_fn, "captures", 0),
+        "replays": getattr(b._step_fn, "replays", 0),
+        "stats": stats,
+    }
+    return [outs[r] for r in rids], report, b
+
+
+def batcher_profile(b, prompt=512, new=64):
+    """Profile one step that admits a request into every slot (8 prefills
+    at the 512 bucket and a decode), time 8 decode steps, then profile 8
+    more: the admissions' and the steps' kernels and the idle share of a
+    step."""
+    rng = np.random.RandomState(0)
+    vocab = b.model.config.vocab_size
+    prompts = [rng.randint(0, vocab, prompt) for _ in range(b.max_batch)]
+    live = []
+
+    def admit_all():
+        live[:] = [b.submit(p, new) for p in prompts]
+        b.step()
+
+    admit = profile_one(admit_all)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        b.step()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 8
+    steps = profile_one(b.step, calls=8)
+    for rid in live:
+        b.abort(rid)
+    device_ms = (steps["device_ms"] / 8 if steps["device_ms"] !=
+                 "not measured" else "not measured")
+    return {"admissions": admit, "steps": steps, "step_wall_ms": wall_ms,
+            "step_device_ms": device_ms,
+            "device_idle_share": (1 - device_ms / wall_ms
+                                  if device_ms != "not measured"
+                                  else "not measured")}
+
+
+def phase_batcher(seed):
+    """The dense ContinuousBatcher at Llama-2-7B width (bf16, 32 layers,
+    random weights from --seed), max_batch 8, s_max 1024, the pow2 prompt
+    ladder, greedy: the same traffic eagerly (compile=False) and with the
+    decode step replayed as a CUDA graph (compile=True). Checks, for each
+    mode: every request completes with prompt + max_new_tokens tokens; the
+    launch counts (eager: 32 flash forwards an admission and 65 RMSNorm
+    forwards an admission or a step; graphed: the same for the admissions
+    and 65 for the eager warm-up call and for the capture, which launches
+    nothing; one replay a step); the profiles of 8 admissions (the
+    tensor-core forward only) and of 8 steps (the RMSNorm vector build
+    only). Then: both modes give the same tokens; for 4 requests, one full
+    forward over prompt + generated puts the batcher's token's logit at
+    each generated position no further below that row's top logit,
+    relative to the row's largest magnitude, than the bf16 forward's own
+    picks lie below a float32 copy's top; each request's bucketed prefill
+    agrees with its exact-length prefill within that prompt's spread
+    between batch 1 and batch 2 plus PREFILL_MARGIN, and its argmax is the
+    batcher's first token. Returns each run's launches (graphed: the
+    replays' included) and the graphed run's wrapper counts."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b_config
+    from paddle_tpu_torch.ops.hopper import KERNELS
+    from paddle_tpu_torch.perf.buckets import resolve_ladder
+    cfg = llama2_7b_config(dtype="bfloat16")
+    layers = cfg.num_hidden_layers
+    norms = 2 * layers + 1
+    model = LlamaForCausalLM(cfg, device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(seed))
+    traffic = batcher_traffic(seed, cfg.vocab_size)
+    outs, counts = {}, {}
+    for compile in (False, True):
+        mode = "graphed" if compile else "eager"
+        got, rep, b = batcher_run(model, traffic, compile)
+        rep["profile"] = batcher_profile(b)
+        del b                      # the graph and its memory pool
+        torch.cuda.empty_cache()
+        for (p, n), o in zip(traffic, got):
+            if len(o) != len(p) + n or not np.array_equal(o[:len(p)], p):
+                fail(f"batcher ({mode}) returned {len(o)} tokens for a "
+                     f"prompt of {len(p)} and {n} new ones, or lost the "
+                     "prompt")
+        adm, steps = rep["admissions"], rep["steps"]
+        if adm != len(traffic):
+            fail(f"batcher ({mode}) admitted {adm} of {len(traffic)}")
+        expect = dict.fromkeys(KERNELS, 0)
+        expect["flash_attention"] = layers * adm
+        expect["rms_norm"] = norms * (adm + steps) if not compile else \
+            norms * (adm + 2 * rep["captures"])
+        # a wrapper counts where it launches, and also at capture, where it
+        # does not; each replay launches the captured step's norms again
+        rep["launches"] = dict(rep["wrapper_counts"])
+        rep["launches"]["rms_norm"] += norms * (rep["replays"] -
+                                                rep["captures"])
+        emit({"phase": "batcher", "mode": mode, "layers": layers,
+              "requests": len(traffic), **rep})
+        if rep["wrapper_counts"] != expect or (compile and (
+                rep["captures"] != 1 or rep["replays"] != steps)):
+            fail(f"batcher ({mode}) launch counts {rep['wrapper_counts']} "
+                 f"({rep['captures']} captures, {rep['replays']} replays of "
+                 f"{steps} steps), expected {expect}")
+        prof = rep["profile"]
+        if prof["admissions"]["flash_fwd_kernels"] != ["flash_fwd_wgmma"]:
+            fail(f"batcher ({mode}) admission attention kernels "
+                 f"{prof['admissions']['flash_fwd_kernels']}, expected the "
+                 "wgmma build only")
+        rms_vector_only(prof["admissions"], f"batcher ({mode}) admissions",
+                        ["rms_norm_fwd_vec"])
+        rms_vector_only(prof["steps"], f"batcher ({mode}) steps",
+                        ["rms_norm_fwd_vec"])
+        if prof["steps"]["flash_fwd_kernels"]:
+            fail(f"batcher ({mode}) decode steps ran a flash forward")
+        outs[mode], counts[mode] = got, rep["launches"]
+        if compile:
+            counts["graphed_wrapper_counts"] = rep["wrapper_counts"]
+    if any(not np.array_equal(a, g)
+           for a, g in zip(outs["eager"], outs["graphed"])):
+        fail("the graphed decode step gave other tokens than the eager one")
+
+    # the tokens against the model itself: bf16 on the card, and a float32
+    # copy of it for the floor of the full-forward check
+    ref = LlamaForCausalLM(llama2_7b_config(), device="cuda")
+    ref.load_state_dict(model.state_dict())
+    ladder = resolve_ladder("pow2", hi=BATCHER["s_max"])
+    full, prefills = [], []
+
+    def gaps(logits, toks):
+        # each row's top logit less the logit at toks, over its largest
+        # magnitude
+        picked = logits.gather(1, toks[:, None])[:, 0]
+        return (logits.max(-1).values - picked) / logits.abs().max(-1).values
+
+    with torch.no_grad():
+        for i, ((p, n), seq) in enumerate(zip(traffic, outs["eager"])):
+            if i < 4:
+                ids = torch.from_numpy(seq[None, :-1]).cuda()
+                toks = torch.from_numpy(seq[len(p):]).cuda()
+                bf16 = model(ids)[0, len(p) - 1:].float()
+                f32 = ref(ids)[0, len(p) - 1:].float()
+                full.append({"i": i, "n": len(p), "new": n,
+                             "gap": float(gaps(bf16, toks).max()),
+                             "bf16_picks_vs_f32": float(
+                                 gaps(f32, bf16.argmax(-1)).max())})
+            padded = np.zeros(ladder.bucket(len(p)), np.int64)
+            padded[:len(p)] = p
+            bucketed, _, _ = model.prefill(
+                torch.from_numpy(padded[None]).cuda(), BATCHER["s_max"],
+                torch.full((1, 1), len(p), dtype=torch.int32,
+                           device="cuda"))
+            exact = torch.from_numpy(p[None]).cuda()
+            one, _, _ = model.prefill(exact, BATCHER["s_max"])
+            two, _, _ = model.prefill(exact.repeat(2, 1), BATCHER["s_max"])
+            scale = float(one.abs().max())
+            spread = max_err(two[:1], one) / scale
+            prefills.append({"i": i, "n": len(p), "bucket": len(padded),
+                             "err": max_err(bucketed, one) / scale,
+                             "spread_batch2_vs_batch1": spread,
+                             "limit": spread + PREFILL_MARGIN})
+            if int(bucketed[0, -1].argmax()) != int(seq[len(p)]):
+                fail(f"request {i}: the batcher's first token is not its "
+                     "bucketed prefill's argmax")
+    del ref
+    floor = max(r["bf16_picks_vs_f32"] for r in full)
+    rec = {"phase": "batcher", "check": "tokens", "graphed_equals_eager": True,
+           "full_forward": max(r["gap"] for r in full),
+           "full_forward_limit": floor, "full_forward_requests": full,
+           "bucketed_prefill": max(r["err"] for r in prefills),
+           "bucketed_prefill_margin": PREFILL_MARGIN,
+           "bucketed_prefill_requests": [r for r in prefills
+                                         if r["err"] or r[
+                                             "spread_batch2_vs_batch1"]],
+           "bucketed_prefill_bit_equal": sum(not r["err"] for r in prefills)}
+    emit(rec)
+    if rec["full_forward"] > floor:
+        fail(f"the batcher's tokens lie further below a full forward's top "
+             f"logit than the bf16 model's own picks lie below the float32 "
+             f"model's: {rec}")
+    over = [r for r in prefills if r["err"] > r["limit"]]
+    if over:
+        fail(f"bucketed prefills disagree with exact-length ones beyond "
+             f"their own batch-2 spread: {over}")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+# Late in a long process a profiler session has lost its first few device
+# records, whatever their timing, which emptied sessions of a few launches
+# (PERF.md, section 7): each session opens with this many spin kernels,
+# whose records are left out.
+PROFILE_PAD = 32
+
+
+def profile_one(fn, calls=1):
+    """Device time by kernel over `calls` calls of fn, after PROFILE_PAD
+    spin kernels that are left out of the result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(1, attempts + 1):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1)
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        if rows:
-            break
-        print(f"chip_smoke: profiler session {attempt} recorded no device "
-              "activity", file=sys.stderr, flush=True)
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and "spin_kernel" not in e.key]
     rows.sort(key=lambda r: -r[1])
     return {"device_ms": sum(r[1] for r in rows) or "not measured",
-            "attempts": attempt,
             "top": [[k[:60], round(ms, 4), n] for k, ms, n in rows[:10]],
             # each flash build with its template arguments, and its records
             "flash_builds": {m: sum(n for k, _, n in rows if m in k)
@@ -1814,7 +2119,6 @@ def phase_sparse(seed):
         "kernels": prof["block_sparse_kernels"],
         "profiled_kernels": sum(n for key, _, n in prof["top"]
                                 if "block_sparse_fwd" in key),
-        "profile_attempts": prof["attempts"],
         "call_ms": sorted(walls)[2] * 1e3,
         "host_probe_ms": sorted(hosts)[2] * 1e3,
         "host_sha1_ms": sorted(digests)[2] * 1e3,
@@ -2041,6 +2345,7 @@ def main(argv=None):
     phase_train_width(args.seed, masked=True)
     phase_gpt2_width(args.seed)
     serve = phase_serve(args.seed)
+    batcher = phase_batcher(args.seed)
     train, train_profile = phase_train(args.seed)
     packed, _ = phase_train(args.seed, packed=True)
     gpt2 = phase_gpt2_train(args.seed)
@@ -2061,6 +2366,13 @@ def main(argv=None):
             k["launches"] = train[name]
         if packed[name]:
             k["launches_per_packed_train_step"] = packed[name]
+        if batcher["eager"][name]:
+            # per batcher run; graphed, the replays' launches included (the
+            # wrapper counts at capture, not at replay: its count beside)
+            k["launches_per_batcher_run"] = {m: batcher[m][name]
+                                             for m in ("eager", "graphed")}
+            k["wrapper_counts_graphed_batcher_run"] = \
+                batcher["graphed_wrapper_counts"][name]
         if gpt2[name] and train[name]:
             k["launches_per_gpt2_train_step"] = gpt2[name]
         if name == "rms_norm_bwd":

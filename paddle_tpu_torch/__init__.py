@@ -6,8 +6,11 @@ ported path becomes a hand-written Hopper kernel under ``ops/hopper/``,
 built from its source with ``nvcc`` at first use. Nothing here imports JAX
 or ``paddle_tpu``.
 
-Ported so far: Llama serving (prefill, then greedy decode over a dense KV
-cache) through ``models.LlamaForCausalLM.generate``; Llama and GPT-2
+Ported so far: Llama serving through ``models.LlamaForCausalLM.generate``
+(prefill, then greedy decode over a dense KV cache) and through
+``inference.ContinuousBatcher`` (slots, bucketed prefill, host token pick,
+deadlines and shedding, its decode step replayed as a CUDA graph); Llama
+and GPT-2
 training (``jit.TrainStep``, ``amp.decorate`` O2, ``optimizer.AdamW``),
 GPT-2's with the flash kernels' in-kernel attention dropout; and
 ``nn.functional_extras.sparse_attention``.

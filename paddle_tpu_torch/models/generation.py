@@ -1,10 +1,14 @@
-"""The shared incremental-decode driver (counterpart of
-``paddle_tpu/models/gpt.py`` ``_generate_loop`` and ``_resolve_s_max``).
+"""The shared incremental-decode driver and the host token pick
+(counterparts of ``paddle_tpu/models/gpt.py`` ``_generate_loop``,
+``_resolve_s_max`` and ``_select_token``).
 
-Greedy only: sampling and beam search are not ported yet.
+``generate_loop`` is greedy only: sampling in ``generate`` and beam search
+are not ported yet. ``select_token`` (greedy or sampled, on the host) is
+what the serving batcher picks with.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -65,4 +69,37 @@ def generate_loop(prefill_fn, step_fn, input_ids, max_new_tokens,
     short = max_new_tokens - (len(toks) - 1)
     if eos_id is not None and short > 0:
         out = torch.cat([out, out.new_full((b, short), pad_id)], dim=1)
+    return out
+
+
+def select_token(logits_np, do_sample, temperature, top_k, top_p, rng):
+    """Next-token selection on host logits [B, V] (``np.random.RandomState``
+    ``rng``): the JAX package's ``GPT2ForCausalLM._select_token`` verbatim,
+    so the same logits and seed draw the same tokens.
+
+    Greedy unless do_sample; sampling applies temperature, then top-k
+    truncation, then nucleus (top-p) truncation, then draws from the
+    renormalized distribution."""
+    if not do_sample:
+        return logits_np.argmax(-1)
+    logits = logits_np.astype(np.float64) / max(temperature, 1e-6)
+    out = np.empty(logits.shape[0], np.int64)
+    for b in range(logits.shape[0]):
+        row = logits[b]
+        if top_k and 0 < top_k < row.shape[-1]:
+            kth = np.partition(row, -top_k)[-top_k]
+            row = np.where(row < kth, -np.inf, row)
+        probs = np.exp(row - row.max())
+        probs /= probs.sum()
+        if top_p is not None and 0 < top_p < 1.0:
+            order = np.argsort(-probs)
+            csum = np.cumsum(probs[order])
+            # keep the smallest prefix reaching top_p (always >= 1)
+            cutoff = int(np.searchsorted(csum, top_p) + 1)
+            keep = order[:cutoff]
+            mask = np.zeros_like(probs, bool)
+            mask[keep] = True
+            probs = np.where(mask, probs, 0.0)
+            probs /= probs.sum()
+        out[b] = rng.choice(probs.shape[-1], p=probs)
     return out

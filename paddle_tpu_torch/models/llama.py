@@ -12,8 +12,10 @@ Training and the full forward take an optional additive ``attn_mask``
 ``[b, 1 | h, s, s]`` (float32 or the model's type), the whole attention
 spec: with a mask the attention runs non-causal, as in the JAX package.
 
-Not ported yet: MoE, context parallelism, the paged routes, beam search,
-sampling and int8 caches. ``scan_layers`` is accepted and
+``prefill(n_valid=)`` and ``decode_step`` are what the serving batcher
+(``inference/serving.py``) drives. Not ported yet: MoE, context
+parallelism, the paged routes, beam search, sampling in ``generate`` and
+int8 caches. ``scan_layers`` is accepted and
 runs the unrolled stack (in the JAX package it is a compile-time device
 with the unrolled loop's numerics); selective recompute recomputes whole
 layers, as the JAX package's unrolled path does.
@@ -334,13 +336,28 @@ class LlamaForCausalLM(nn.Module):
     # -- incremental (KV-cache) decode: the serving path --------------------
 
     @torch.no_grad()
-    def prefill(self, input_ids, s_max):
+    def prefill(self, input_ids, s_max, n_valid=None):
         """Prompt pass. Returns (last_logits [B, 1, V],
-        caches [L, 2, B, KV, s_max, D], t [B, 1] int32)."""
+        caches [L, 2, B, KV, s_max, D], t [B, 1] int32).
+
+        ``n_valid`` ([B, 1] int, on the ids' device): the true prompt
+        lengths when ``input_ids`` is right-padded onto a bucket ladder.
+        The last hidden state is gathered at ``n_valid - 1`` and decode
+        resumes at ``t = n_valid``. Causality keeps the pad rows out of
+        every earlier position, and decode overwrites each pad cache row
+        before any step can read it."""
         b, s = input_ids.shape
         hidden, caches = self.model.forward_prefill(input_ids, s_max)
-        t = torch.full((b, 1), s, dtype=torch.int32, device=input_ids.device)
-        return self._lm_logits(hidden[:, s - 1:s]), caches, t
+        if n_valid is None:
+            last = hidden[:, s - 1:s]
+            t = torch.full((b, 1), s, dtype=torch.int32,
+                           device=input_ids.device)
+        else:
+            idx = (n_valid.long() - 1).reshape(b, 1, 1).expand(
+                b, 1, hidden.shape[-1])
+            last = torch.gather(hidden, 1, idx)
+            t = n_valid.to(torch.int32)
+        return self._lm_logits(last), caches, t
 
     @torch.no_grad()
     def decode_step(self, tok, caches, t):
