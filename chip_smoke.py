@@ -75,6 +75,31 @@ Phases, each printing JSON lines (any failure exits non-zero):
    the RMSNorm vector build only. Per mode: admissions, steps, tokens,
    wall time, decode ms a step, tokens/s, TTFT, the idle share of a step
    and peak memory.
+4c. paged: the same model serves through paddle_tpu_torch.inference.
+   PagedContinuousBatcher. Run A: benchmarks/bench_decode.py's
+   configuration (block 64, 64-token prefill chunks, pages on demand; 8
+   slots, s_max 1024) over the batcher phase's traffic, eagerly and with
+   the decode step replayed as a CUDA graph. Run B: bench_gateway.py's
+   (pages on demand, the prefix cache, the pow2 ladder) at block 16 and
+   228 pages over 24 requests sharing 4 system prompts of 512 tokens,
+   graphed, and the same traffic eagerly with no prefix cache in the
+   default pool ("B plain"). Then generate_paged at the serve phase's
+   shape. Checks: every request completes at its full length; Run A's
+   graphed tokens equal its eager ones with one capture; Run B preempts
+   and hits the prefix cache; no page leaks; the RMSNorm launch counts
+   (65 a prefill call or chunk and a decode step; graphed, 65 for the
+   warm-up and the capture, the replays counted by to_static), the
+   profiles of 4 admissions and 8 steps (the RMSNorm vector build, no
+   flash kernel) and the RMSNorm forward against its plain version at
+   every prefill shape the runs gave it; where the paged tokens differ
+   from the dense batcher's or generate's, or Run B's from B plain's, the
+   two picks lie within the run's bf16 spread against a float32 copy, and
+   Run B's tokens lie within it of their full forward's top for 4
+   requests that missed the cache and 4 that hit it. Per run: admissions,
+   prefill calls, steps, tokens, wall, tokens/s, decode ms a step, TTFT,
+   idle share, peak memory, preemptions, prefix hit and miss tokens, and
+   a step's device ms by part (gather and cast, attention, weight
+   products, norms).
 5. train: Llama-2-7B width at 8 of its 32 layers trains 5 steps of
    4 x 2048 tokens (AdamW, amp.decorate O2 bf16, recompute, TrainStep);
    the launch counts of one step prove the path ran every kernel, and its
@@ -590,6 +615,10 @@ def phase_kernels(seed):
         rms_case(gen, dtype, (2, 51200), vector=False)
     rms_case(gen, bf16, (4, 32768))
     rms_case(gen, torch.float32, (4, 32768), vector=False)
+    # the batchers' prefill widths: 64-token chunks and the pow2 rungs (the
+    # paged phase also checks every shape its runs gave)
+    for s in (64, 128, 256, 512, 1024):
+        rms_case(gen, bf16, (1, s, 4096))
 
     # the serving path's shapes: prefill attention (4 x 512, 32 heads,
     # d 128, causal, bf16) and the prefill/decode norms
@@ -1690,7 +1719,17 @@ def batcher_profile(b, prompt=512, new=64):
                                   else "not measured")}
 
 
-def phase_batcher(seed):
+def serving_model(seed):
+    """Llama-2-7B (bf16, all 32 layers) with random weights from `seed`: the
+    serve, batcher and paged phases' model."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b_config
+    return LlamaForCausalLM(llama2_7b_config(dtype="bfloat16"),
+                            device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(seed))
+
+
+def phase_batcher(seed, model):
     """The dense ContinuousBatcher at Llama-2-7B width (bf16, 32 layers,
     random weights from --seed), max_batch 8, s_max 1024, the pow2 prompt
     ladder, greedy: the same traffic eagerly (compile=False) and with the
@@ -1709,16 +1748,14 @@ def phase_batcher(seed):
     agrees with its exact-length prefill within that prompt's spread
     between batch 1 and batch 2 plus PREFILL_MARGIN, and its argmax is the
     batcher's first token. Returns each run's launches (graphed: the
-    replays' included) and the graphed run's wrapper counts."""
+    replays' included), the graphed run's wrapper counts, and the eager
+    run's sequences."""
     from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b_config
     from paddle_tpu_torch.ops.hopper import KERNELS
     from paddle_tpu_torch.perf.buckets import resolve_ladder
-    cfg = llama2_7b_config(dtype="bfloat16")
+    cfg = model.config
     layers = cfg.num_hidden_layers
     norms = 2 * layers + 1
-    model = LlamaForCausalLM(cfg, device="cuda",
-                             generator=torch.Generator(device="cuda")
-                             .manual_seed(seed))
     traffic = batcher_traffic(seed, cfg.vocab_size)
     outs, counts = {}, {}
     for compile in (False, True):
@@ -1831,8 +1868,444 @@ def phase_batcher(seed):
     if over:
         fail(f"bucketed prefills disagree with exact-length ones beyond "
              f"their own batch-2 spread: {over}")
-    del model
     torch.cuda.empty_cache()
+    return counts, outs["eager"]
+
+
+# -- phase 4c ----------------------------------------------------------------
+
+# Run A: benchmarks/bench_decode.py:190-192's PagedContinuousBatcher (block
+# 64, 64-token chunks, pages on demand) over the batcher phase's traffic.
+PAGED_A = dict(max_batch=8, s_max=1024, block_size=64, prefill_chunk=64,
+               policy="ondemand")
+# Run B: benchmarks/bench_gateway.py:75-79's (pages on demand, the prefix
+# cache, the pow2 ladder) at block 16 and 7B width; 228 pages (of the 512
+# that 8 full slots would take) make seed 0's traffic preempt.
+PAGED_B = dict(max_batch=8, s_max=1024, block_size=16, n_pages=228,
+               policy="ondemand", prefix_cache=True, prompt_buckets="pow2")
+
+
+def paged_traffic(seed, vocab):
+    """24 requests sharing 4 system prompts of 512 tokens (request i takes
+    prompt i % 4), each with a tail of 16-256 tokens and 16-64 new tokens,
+    all drawn from `seed`."""
+    rng = np.random.RandomState(seed + 1)
+    systems = [rng.randint(0, vocab, 512).astype(np.int64)
+               for _ in range(4)]
+    tails = rng.randint(16, 257, 24)
+    news = rng.randint(16, 65, 24)
+    return [(np.concatenate([systems[i % 4],
+                             rng.randint(0, vocab, t).astype(np.int64)]),
+             int(n)) for i, (t, n) in enumerate(zip(tails, news))]
+
+
+def count_calls(obj, name):
+    """Count calls of obj.name and collect the shapes of their first
+    arguments (an instance attribute wraps the method; `del obj.name`
+    restores it). Returns [calls, the set of shapes]."""
+    fn, box = getattr(obj, name), [0, set()]
+
+    def counted(*args, **kw):
+        box[0] += 1
+        box[1].add(tuple(args[0].shape))
+        return fn(*args, **kw)
+    setattr(obj, name, counted)
+    return box
+
+
+def paged_run(model, traffic, config, compile):
+    """Serve `traffic` through a new PagedContinuousBatcher(**config): 12
+    requests up front and 12 after the 5th step. The launch counters and
+    the model's paged_prefill_into calls (one a prefill or a chunk) are
+    set to 0 just before and read just after; the batcher audits its pages
+    after every release. The report also holds the shapes of the ids the
+    prefill calls took and each request's prefix-cache hit rows at each of
+    its admissions. Returns (each request's full sequence, the run's
+    report, the batcher)."""
+    from paddle_tpu_torch.inference import PagedContinuousBatcher
+    from paddle_tpu_torch.observability.metrics import get_registry
+    from paddle_tpu_torch.ops.hopper import launch_counts, reset_launch_counts
+    reg = get_registry()
+    reg.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b = PagedContinuousBatcher(model, compile=compile, **config)
+    calls = count_calls(model, "paged_prefill_into")
+    hits, prefill_end = {}, b._trace_prefill_end
+
+    def record_hit(req, **tags):
+        hits.setdefault(req.rid, []).append(tags["prefix_hit"])
+        return prefill_end(req, **tags)
+    b._trace_prefill_end = record_hit
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [b.submit(p, n) for p, n in traffic[:12]]
+    early = []
+    for _ in range(5):
+        early += b.step()
+    rids += [b.submit(p, n) for p, n in traffic[12:]]
+    outs = b.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    del model.paged_prefill_into
+    outs.update({rid: b.pop_result(rid) for rid in early})
+    stats = b.stats()
+
+    def paged(name):
+        return reg.get(name).labels(engine="paged")
+
+    step_s = paged("serving_step_seconds")
+    ttft_s = paged("serving_ttft_seconds")
+    report = {
+        "compile": compile, **{k: v for k, v in config.items()},
+        "n_pages": b.n_pages,
+        "admissions": paged("serving_admissions_total").value,
+        "prefill_calls": calls[0], "prefill_shapes": sorted(calls[1]),
+        "steps": stats["steps"],
+        "tokens": stats["generated_tokens"], "wall_s": wall,
+        "tokens_per_s": stats["generated_tokens"] / wall,
+        "decode_ms_per_step": step_s.quantile(0.5) * 1e3,
+        "decode_ms_first_step_or_max": step_s.quantile(1.0) * 1e3,
+        "ttft_ms_median": ttft_s.quantile(0.5) * 1e3,
+        "ttft_ms_max": ttft_s.quantile(1.0) * 1e3,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "preemptions": stats["preemptions"],
+        "prefix_hit_tokens": reg.get("serving.prefix_hit_tokens").value,
+        "prefix_miss_tokens": reg.get("serving.prefix_miss_tokens").value,
+        "prefix_evictions": reg.get("serving.prefix_evictions").value,
+        "pages_leaked": reg.get("serving.pages_leaked").value,
+        "wrapper_counts": launches,
+        "captures": getattr(b._step_fn, "captures", 0),
+        "replays": getattr(b._step_fn, "replays", 0),
+        "stats": stats,
+        "prefix_hit_rows": [hits.get(r, []) for r in rids],
+    }
+    return [outs[r] for r in rids], report, b
+
+
+def paged_step_split(b, reps=20):
+    """Device ms of one decode step's parts at the batcher's state (its page
+    pool, block table and timelines), each timed alone with CUDA events
+    (median of `reps`) and multiplied by the step's count of it: the
+    timeline gather and float32 cast of K and V, the attention over them
+    (scores, mask, softmax, P V), the weight products (7 a layer and the
+    LM head) and the 65 norms."""
+    from paddle_tpu_torch.incubate.nn.functional import decode_attention
+    model, cfg = b.model, b.model.config
+    layers, bsz = cfg.num_hidden_layers, b.max_batch
+    h, kvh, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                 cfg.head_dim)
+    kc, vc = b._state["layers"][0]
+    b._sync_tables()
+    bt = b._state["block_tables"].long()
+    dec = b._state["dec_lens"].long()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(bsz, 1, cfg.hidden_size, generator=gen, device="cuda",
+                    dtype=kc.dtype)
+    q = torch.randn(bsz, 1, h, d, generator=gen, device="cuda",
+                    dtype=kc.dtype)
+    gk = decode_attention._gather_paged(kc, bt)
+    gv = decode_attention._gather_paged(vc, bt)
+    layer = model.model.layers[0]
+    attn, mlp = layer.self_attn, layer.mlp
+
+    def events(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            # the host queues the events and the calls before the card
+            # reaches them, so its launch latency stays outside
+            torch.cuda._sleep(1_000_000)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[reps // 2]
+
+    wide = torch.zeros(bsz, 1, cfg.intermediate_size, device="cuda",
+                       dtype=x.dtype)
+
+    def products():
+        for lin in (attn.q_proj, attn.k_proj, attn.v_proj, attn.o_proj,
+                    mlp.gate_proj, mlp.up_proj):
+            lin(x)
+        mlp.down_proj(wide)
+
+    with torch.no_grad():
+        return {
+            "gather_and_cast": layers * events(lambda: (
+                decode_attention._gather_paged(kc, bt),
+                decode_attention._gather_paged(vc, bt))),
+            "attention": layers * events(lambda: decode_attention._attend(
+                q, gk, gv, dec[:, None], dec + 1)),
+            "weight_products": layers * events(products)
+            + events(lambda: model._lm_logits(x)),
+            "norms": (2 * layers + 1) * events(
+                lambda: layer.input_layernorm(x)),
+        }
+
+
+def paged_profile(b, prompt=512, new=64, admit=4):
+    """Profile one step that admits `admit` requests (prompts of `prompt`
+    tokens) and decodes, time 8 decode steps, profile 8 more, then time the
+    step's parts (paged_step_split): the admissions' and the steps'
+    kernels, the idle share of a step and where its device time goes."""
+    rng = np.random.RandomState(0)
+    vocab = b.model.config.vocab_size
+    prompts = [rng.randint(0, vocab, prompt) for _ in range(admit)]
+    live = []
+
+    def admit_all():
+        live[:] = [b.submit(p, new) for p in prompts]
+        b.step()
+
+    admissions = profile_one(admit_all)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        b.step()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 8
+    steps = profile_one(b.step, calls=8)
+    split = paged_step_split(b)
+    for rid in live:
+        b.abort(rid)
+    b.audit_pages()
+    device_ms = (steps["device_ms"] / 8 if steps["device_ms"] !=
+                 "not measured" else "not measured")
+    if device_ms != "not measured":
+        split["other"] = device_ms - sum(split.values())
+    return {"admissions": admissions, "steps": steps,
+            "step_wall_ms": wall_ms, "step_device_ms": device_ms,
+            "step_split_ms": split,
+            "device_idle_share": (1 - device_ms / wall_ms
+                                  if device_ms != "not measured"
+                                  else "not measured")}
+
+
+def pick_gaps(logits, toks):
+    """Each row's top logit less the logit at toks, over the row's largest
+    magnitude."""
+    picked = logits.gather(1, toks[:, None])[:, 0]
+    return (logits.max(-1).values - picked) / logits.abs().max(-1).values
+
+
+def bf16_spread(model, ref, seqs, prompt_lens):
+    """How far below a float32 copy's top logit the bf16 model's own picks
+    lie (pick_gaps over every generated position of `seqs`): the noise of a
+    bf16 pick in this run, which a token that differs between two bf16
+    paths may not exceed. Also each sequence's own tokens against its bf16
+    full forward. Returns (spread, the largest such gap, per sequence)."""
+    rows = []
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        for seq, n in zip(seqs, prompt_lens):
+            ids = torch.from_numpy(seq[None, :-1]).to(dev)
+            toks = torch.from_numpy(seq[n:]).to(dev)
+            bf16 = model(ids)[0, n - 1:].float()
+            f32 = ref(ids)[0, n - 1:].float()
+            rows.append({"n": n, "new": len(seq) - n,
+                         "gap": float(pick_gaps(bf16, toks).max()),
+                         "bf16_picks_vs_f32": float(
+                             pick_gaps(f32, bf16.argmax(-1)).max())})
+    return (max(r["bf16_picks_vs_f32"] for r in rows),
+            max(r["gap"] for r in rows), rows)
+
+
+def divergence(ref, pairs):
+    """Two paths' sequences of the same requests: `pairs` of (prompt
+    length, sequence a, sequence b). Counts the generated tokens that
+    differ; at each request's first differing token (the two share all
+    before it) the float32 copy's verdict: how far apart the two picks'
+    logits lie, over the row's largest magnitude. Returns (differing
+    tokens, the first differences)."""
+    differing, firsts = 0, []
+    dev = next(ref.parameters()).device
+    with torch.no_grad():
+        for i, (n, a, b) in enumerate(pairs):
+            diff = np.flatnonzero(a[n:] != b[n:])
+            differing += len(diff)
+            if not len(diff):
+                continue
+            j = n + int(diff[0])
+            row = ref(torch.from_numpy(a[None, :j]).to(dev))[0, -1].float()
+            firsts.append({"i": i, "at": j - n, "new": len(a) - n,
+                           "gap": float((row[int(a[j])] - row[int(b[j])])
+                                        .abs() / row.abs().max())})
+    return differing, firsts
+
+
+def phase_paged(seed, model, dense_tokens):
+    """The PagedContinuousBatcher at Llama-2-7B width (bf16, 32 layers,
+    random weights from --seed; plain paged attention over a page pool).
+
+    Run A (PAGED_A, the batcher phase's traffic), eagerly and with the
+    decode step replayed as a CUDA graph; Run B (PAGED_B, paged_traffic,
+    the prefix cache), graphed, and its traffic again eagerly with no
+    prefix cache in the default pool (no preemption: "B plain"); then
+    generate_paged at the serve phase's shape (4 x 512 prompt tokens, 32
+    new, block 64). Checks: every request completes at its full length;
+    Run A's graphed tokens equal its eager ones with one capture; Run B
+    preempts and hits the prefix cache; no page leaks; the RMSNorm wrapper
+    counts 65 launches a prefill call (a chunk or a whole prefill) and a
+    decode step (graphed: 65 for the warm-up and for the capture, and the
+    replays counted by to_static), and nothing else launches; the profiles
+    of 4 admissions and 8 steps show the norms ran the RMSNorm vector build
+    only and no flash kernel; the RMSNorm forward against its plain version
+    at every prefill shape the runs gave it. Then, against a float32 copy:
+    the bf16 spread of the run (bf16_spread over 4 of Run A's requests);
+    Run B's tokens against their full forward within it, for 4 requests
+    that missed the cache and 4 that hit it; and where Run A's tokens
+    differ from the dense batcher's, Run B's from B plain's, or
+    generate_paged's from generate's, the two picks within it (the paths
+    sum in other orders: PERF.md). Returns each run's launches (graphed:
+    the replays' included)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b_config
+    from paddle_tpu_torch.ops.hopper import (KERNELS, launch_counts,
+                                             reset_launch_counts)
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    norms = 2 * layers + 1
+    traffic_a = batcher_traffic(seed, cfg.vocab_size)
+    traffic_b = paged_traffic(seed, cfg.vocab_size)
+    plain_b = dict(PAGED_B, prefix_cache=False, n_pages=None)
+    outs, counts, reps = {}, {}, {}
+    for name, mode, config, traffic, compile in (
+            ("A", "A eager", PAGED_A, traffic_a, False),
+            ("A", "A graphed", PAGED_A, traffic_a, True),
+            ("B", "B graphed", PAGED_B, traffic_b, True),
+            ("B", "B plain", plain_b, traffic_b, False)):
+        got, rep, b = paged_run(model, traffic, config, compile)
+        rep["profile"] = paged_profile(b)
+        del b                      # the graph, its memory pool, the pages
+        torch.cuda.empty_cache()
+        for (p, n), o in zip(traffic, got):
+            if len(o) != len(p) + n or not np.array_equal(o[:len(p)], p):
+                fail(f"paged run {mode} returned {len(o)} tokens for a "
+                     f"prompt of {len(p)} and {n} new ones, or lost the "
+                     "prompt")
+        expect = dict.fromkeys(KERNELS, 0)
+        expect["rms_norm"] = norms * (rep["prefill_calls"] + (
+            2 * rep["captures"] if compile else rep["steps"]))
+        rep["launches"] = dict(rep["wrapper_counts"])
+        rep["launches"]["rms_norm"] += norms * (rep["replays"] -
+                                                rep["captures"])
+        emit({"phase": "paged", "run": name, "mode": mode, "layers": layers,
+              "requests": len(traffic), **rep})
+        if rep["admissions"] < len(traffic):
+            fail(f"paged run {mode} admitted {rep['admissions']} of "
+                 f"{len(traffic)}")
+        if rep["wrapper_counts"] != expect or (compile and (
+                rep["captures"] != 1 or rep["replays"] != rep["steps"])):
+            fail(f"paged run {mode} launch counts {rep['wrapper_counts']} "
+                 f"({rep['captures']} captures, {rep['replays']} replays of "
+                 f"{rep['steps']} steps), expected {expect}")
+        if rep["pages_leaked"] != 0:
+            fail(f"paged run {mode} leaked {rep['pages_leaked']} pages")
+        if mode == "B graphed" and (rep["preemptions"] < 1
+                                    or rep["prefix_hit_tokens"] <= 0):
+            fail(f"paged run {mode}: {rep['preemptions']} preemptions and "
+                 f"{rep['prefix_hit_tokens']} prefix hit tokens, expected "
+                 "at least one of each")
+        prof = rep["profile"]
+        for part in ("admissions", "steps"):
+            rms_vector_only(prof[part], f"paged run {mode} {part}",
+                            ["rms_norm_fwd_vec"])
+            if prof[part]["flash_fwd_kernels"]:
+                fail(f"paged run {mode} {part} ran a flash forward")
+        outs[mode], counts[mode], reps[mode] = got, rep["launches"], rep
+    if any(not np.array_equal(a, g)
+           for a, g in zip(outs["A eager"], outs["A graphed"])):
+        fail("the graphed paged decode step gave other tokens than the "
+             "eager one")
+
+    # generate_paged at the serve phase's shape, beside generate
+    ids = torch.randint(0, cfg.vocab_size, (4, 512),
+                        generator=torch.Generator().manual_seed(seed + 1)
+                        ).cuda()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paged_ids = model.generate_paged(ids, 32, block_size=64)
+    torch.cuda.synchronize()
+    paged_s = time.perf_counter() - t0
+    gen_launches = launch_counts()
+    expect = dict.fromkeys(KERNELS, 0)
+    expect["rms_norm"] = norms * 32
+    if gen_launches != expect:
+        fail(f"generate_paged launch counts {gen_launches}, expected "
+             f"{expect}")
+    dense_ids = model.generate(ids, 32)
+    if tuple(paged_ids.shape) != (4, 544) or not torch.equal(
+            paged_ids[:, :512], ids):
+        fail(f"generate_paged returned {tuple(paged_ids.shape)} or lost "
+             "the prompt")
+    counts["generate_paged"] = gen_launches
+
+    # the RMSNorm forward against its plain version at every prefill shape
+    # the runs gave it (64-token chunks, the ladder's rungs and what the
+    # capacity clamps them to, generate_paged's prompt)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = sorted({sh for r in reps.values() for sh in r["prefill_shapes"]}
+                    | {tuple(ids.shape)})
+    for sh in shapes:
+        rms_case(gen, torch.bfloat16, (*sh, cfg.hidden_size))
+
+    # Run B's rows for the full-forward check: 4 that missed the cache and
+    # the first 4 whose admission hit it
+    hit_rows = reps["B graphed"]["prefix_hit_rows"]
+    hit = [i for i, h in enumerate(hit_rows) if h[0] > 0][:4]
+    if len(hit) < 4:
+        fail(f"Run B: fewer than 4 requests hit the prefix cache at "
+             f"admission: {hit_rows}")
+    b_check = [i for i, h in enumerate(hit_rows) if h[0] == 0][:4] + hit
+
+    # the tokens against a float32 copy of the model
+    ref = LlamaForCausalLM(llama2_7b_config(), device="cuda")
+    ref.load_state_dict(model.state_dict())
+    spread, _, spread_rows = bf16_spread(
+        model, ref, outs["A eager"][:4], [len(p) for p, _ in traffic_a[:4]])
+    _, b_gap, b_rows = bf16_spread(
+        model, ref, [outs["B graphed"][i] for i in b_check],
+        [len(traffic_b[i][0]) for i in b_check])
+    for i, r in zip(b_check, b_rows):
+        r.update(request=i, prefix_hit_rows=hit_rows[i])
+    vs_dense = divergence(ref, [(len(p), a, d) for (p, _), a, d in zip(
+        traffic_a, outs["A eager"], dense_tokens)])
+    vs_plain = divergence(ref, [(len(p), g, e) for (p, _), g, e in zip(
+        traffic_b, outs["B graphed"], outs["B plain"])])
+    vs_generate = divergence(ref, [(512, a, d) for a, d in zip(
+        paged_ids.cpu().numpy(), dense_ids.cpu().numpy())])
+    del ref
+    torch.cuda.empty_cache()
+    rec = {"phase": "paged", "check": "tokens",
+           "graphed_equals_eager": True, "bf16_spread": spread,
+           "bf16_spread_requests": spread_rows,
+           "run_b_full_forward": b_gap, "run_b_requests": b_rows,
+           "run_a_vs_dense": {"differing_tokens": vs_dense[0],
+                              "tokens": sum(n for _, n in traffic_a),
+                              "first_differences": vs_dense[1]},
+           "run_b_vs_plain": {"differing_tokens": vs_plain[0],
+                              "tokens": sum(n for _, n in traffic_b),
+                              "first_differences": vs_plain[1]},
+           "rms_norm_prefill_shapes": [list(sh) for sh in shapes],
+           "generate_paged_vs_generate": {
+               "differing_tokens": vs_generate[0], "tokens": 4 * 32,
+               "first_differences": vs_generate[1]},
+           "generate_paged_s": paged_s}
+    emit(rec)
+    if b_gap > spread:
+        fail(f"Run B's tokens lie further below their full forward's top "
+             f"logit than the bf16 spread {spread}: {b_rows}")
+    over = [r for r in vs_dense[1] + vs_plain[1] + vs_generate[1]
+            if r["gap"] > spread]
+    if over:
+        fail(f"paged and dense picks, or prefix-cache and plain ones, "
+             f"differ by more than the bf16 spread {spread}: {over}")
     return counts
 
 
@@ -2345,7 +2818,11 @@ def main(argv=None):
     phase_train_width(args.seed, masked=True)
     phase_gpt2_width(args.seed)
     serve = phase_serve(args.seed)
-    batcher = phase_batcher(args.seed)
+    model = serving_model(args.seed)
+    batcher, dense_tokens = phase_batcher(args.seed, model)
+    paged = phase_paged(args.seed, model, dense_tokens)
+    del model, dense_tokens
+    torch.cuda.empty_cache()
     train, train_profile = phase_train(args.seed)
     packed, _ = phase_train(args.seed, packed=True)
     gpt2 = phase_gpt2_train(args.seed)
@@ -2373,6 +2850,13 @@ def main(argv=None):
                                              for m in ("eager", "graphed")}
             k["wrapper_counts_graphed_batcher_run"] = \
                 batcher["graphed_wrapper_counts"][name]
+        if paged["A eager"][name]:
+            # per paged batcher run (graphed: the replays' included) and
+            # per generate_paged
+            k["launches_per_paged_run"] = {
+                m: paged[m][name] for m in ("A eager", "A graphed",
+                                            "B graphed", "B plain",
+                                            "generate_paged")}
         if gpt2[name] and train[name]:
             k["launches_per_gpt2_train_step"] = gpt2[name]
         if name == "rms_norm_bwd":

@@ -9,7 +9,10 @@ or ``paddle_tpu``.
 Ported so far: Llama serving through ``models.LlamaForCausalLM.generate``
 (prefill, then greedy decode over a dense KV cache) and through
 ``inference.ContinuousBatcher`` (slots, bucketed prefill, host token pick,
-deadlines and shedding, its decode step replayed as a CUDA graph); Llama
+deadlines and shedding, its decode step replayed as a CUDA graph) and
+``inference.PagedContinuousBatcher`` (a page pool with reserve or
+on-demand paging and preemption, the radix prefix cache's device tier,
+chunked prefill; its decode step a CUDA graph too); Llama
 and GPT-2
 training (``jit.TrainStep``, ``amp.decorate`` O2, ``optimizer.AdamW``),
 GPT-2's with the flash kernels' in-kernel attention dropout; and

@@ -1,5 +1,8 @@
 """Serving (counterpart of ``paddle_tpu/inference``). Ported: the dense
-``ContinuousBatcher``."""
-from .serving import ContinuousBatcher, Request
+``ContinuousBatcher``, the ``PagedContinuousBatcher`` and the device tier of
+the radix prefix cache."""
+from .prefix_cache import RadixPrefixCache, chain_hashes
+from .serving import ContinuousBatcher, PagedContinuousBatcher, Request
 
-__all__ = ["ContinuousBatcher", "Request"]
+__all__ = ["ContinuousBatcher", "PagedContinuousBatcher", "RadixPrefixCache",
+           "Request", "chain_hashes"]

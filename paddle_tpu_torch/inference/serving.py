@@ -1,6 +1,7 @@
 """Continuous batching over the KV-cache decode step (counterpart of
-``paddle_tpu/inference/serving.py:1-752``: ``Request``, ``_ServingStats``,
-``_BatcherBase`` and the dense ``ContinuousBatcher``).
+``paddle_tpu/inference/serving.py``: ``Request``, ``_ServingStats``,
+``_BatcherBase``, the dense ``ContinuousBatcher`` and the
+``PagedContinuousBatcher``).
 
 The batcher owns ``max_batch`` SLOTS, one fixed ``[L, 2, B, KV, S, D]``
 cache on the model's device, and a host-side scheduler that admits
@@ -11,12 +12,18 @@ admission's prefill overwrites before any real read (causality: a slot's
 attention never reads rows past its own t), so the decode step keeps one
 shape, and with ``compile=True`` one CUDA graph serves every step.
 
-Not ported yet: ``PagedContinuousBatcher`` (paged cache, prefix cache,
-promotion, speculative decode, int8), the tensor-parallel shard group and
-the gateway's requeue tags on the prefill span.
+The paged batcher keeps one page pool instead: admission and preemption
+move pages, not tensors, and a radix prefix cache can share a prompt's
+pages across requests (``PagedContinuousBatcher``'s docstring).
+
+Not ported yet: the paged batcher's fused admission, K-step decode blocks,
+int8 pages, host and disk tiers with promotion, sessions and speculative
+decode; the tensor-parallel shard group and the gateway's requeue tags on
+the prefill span.
 """
 from __future__ import annotations
 
+import os as _os
 import threading
 import time as _time
 from dataclasses import dataclass, field
@@ -27,7 +34,7 @@ import torch
 
 from ..device import to_torch_dtype
 from ..jit import to_static
-from ..models.generation import select_token
+from ..models.generation import paged_state, select_token
 from ..observability import roofline_attr
 from ..observability.fleet import autospool_tick
 from ..observability.metrics import get_registry
@@ -36,8 +43,9 @@ from ..perf.buckets import pad_amount, resolve_ladder
 from ..resilience.chaos import fault_point
 from ..resilience.recovery import (DeadlineExceeded, HealthStateMachine,
                                    Overloaded)
+from .prefix_cache import RadixPrefixCache
 
-__all__ = ["ContinuousBatcher", "Request"]
+__all__ = ["ContinuousBatcher", "PagedContinuousBatcher", "Request"]
 
 
 @dataclass
@@ -88,13 +96,12 @@ class _ServingStats:
                             "requests admitted into slots")
         self.completions = c("serving_completions_total",
                              "requests finished")
-        # series of the paged batcher's preemptions and K-step blocks: the
-        # dense batcher registers them and leaves them at 0, as in the JAX
-        # package
-        c("serving_preemptions_total",
-          "requests preempted back to the queue")
+        self.preempt_c = c("serving_preemptions_total",
+                           "requests preempted back to the queue")
         self.tokens_c = c("serving_tokens_total", "tokens generated")
         self.steps_c = c("serving_steps_total", "decode steps")
+        # K-step decode blocks are not ported: the series stays at 0, as
+        # the dense batcher's does in the JAX package
         c("serving_decode_blocks_total", "K-step decode blocks dispatched")
         self.queue_depth = g("serving_queue_depth",
                              "pending requests right now")
@@ -119,6 +126,7 @@ class _ServingStats:
         self.tokens = 0
         self.occupancy_sum = 0
         self.completed = 0
+        self.preempted = 0
         self.shed = 0
         self.expired = 0
         self.t0 = _time.perf_counter()
@@ -155,6 +163,10 @@ class _ServingStats:
         self.completed += 1
         self.completions.inc()
 
+    def on_preempt(self):
+        self.preempted += 1
+        self.preempt_c.inc()
+
     def on_shed(self):
         self.shed += 1
         self.shed_c.inc()
@@ -179,13 +191,11 @@ class _ServingStats:
             "mean_active_slots": self.occupancy_sum / steps,
             "slot_utilization": self.occupancy_sum / steps / max_batch,
             "completed_requests": self.completed,
-            # the paged batcher's keys, constant here: a dense slot is
-            # never preempted, its cache is not int8, and it decodes one
-            # token a dispatch
-            "preemptions": 0,
+            "preemptions": self.preempted,
             "pending_now": pending,
             "active_now": active,
             "elapsed_s": dt,
+            # int8 caches and K-step decode blocks are not ported
             "cachekv_clip_rate": 0.0,
             "decode_blocks": 0,
             "requests_shed": self.shed,
@@ -388,6 +398,15 @@ class _BatcherBase:
         the JAX package's sampling semantics (``select_token``)."""
         return select_token(logits_np, self._do_sample, self._temperature,
                             self._top_k, self._top_p, self._rng)
+
+    def _count_pad_waste(self, rung: int, waste: int):
+        """Count the pad tokens admission added to reach a prompt bucket,
+        labelled by the rung, so waste is attributed per bucket without
+        re-deriving the ladder."""
+        get_registry().counter(
+            "serving.bucket_pad_waste",
+            "pad tokens admission added to reach the prompt bucket",
+            labelnames=("rung",)).labels(rung=str(rung)).inc(waste)
 
     def _maybe_finish(self, req: Request, tok: int) -> bool:
         if (self.eos_id is not None and tok == self.eos_id) \
@@ -603,14 +622,7 @@ class ContinuousBatcher(_BatcherBase):
             if self._prompt_ladder is not None:
                 pad = pad_amount(self._prompt_ladder, n)
                 if pad:
-                    # labeled by the rung so waste can be attributed per
-                    # bucket without re-deriving the ladder
-                    get_registry().counter(
-                        "serving.bucket_pad_waste",
-                        "pad tokens admission added to reach the prompt "
-                        "bucket",
-                        labelnames=("rung",)).labels(
-                            rung=str(n + pad)).inc(pad)
+                    self._count_pad_waste(n + pad, pad)
                     prompt = np.concatenate(
                         [prompt, np.zeros(pad, prompt.dtype)])
                 # passed even for exact-rung prompts, as in the JAX
@@ -665,4 +677,540 @@ class ContinuousBatcher(_BatcherBase):
                 finished.append(req.rid)
         self._tele.on_decode_time(_time.perf_counter() - t0, n_active)
         self._tele.set_gauges(len(self._pending), len(self._slot_req))
+        return finished
+
+
+class PagedContinuousBatcher(_BatcherBase):
+    """Continuous batching over the paged (block) KV cache.
+
+    Cache memory is a pool of physical pages, ``[n_pages + 1, KV, bs, D]``
+    per layer; a block table ``[max_batch, blocks_per_seq]`` maps each live
+    sequence's logical blocks onto pool rows, and the scheduler admits and
+    preempts by moving pages, not tensors. The host owns the free list, the
+    block table and each slot's timeline length; it copies both tables into
+    the same two device tensors before every step, so with ``compile=True``
+    one CUDA graph (``jit.to_static``, the state donated) serves every step
+    at every occupancy. Parked slots point every block at a reserved
+    scratch page (pool row ``n_pages``) with timeline length 0, so their
+    garbage decode writes land in scratch and never touch a live page.
+
+    model: a model with the paged methods (``paged_alloc``,
+    ``paged_prefill_into``, ``paged_decode_step``); in the port that is
+    ``LlamaForCausalLM``. max_batch: slot count. s_max: rows a sequence may
+    hold (prompt + generation). block_size: rows a page. n_pages: pool size
+    (default: every slot's worst case). eos_id: optional early-stop token.
+
+    policy:
+      * ``"reserve"``: admission reserves the worst-case page count
+        (ceil((prompt + max_new) / bs)) up front; the queue's head waits
+        when the pool cannot cover it. No preemption.
+      * ``"ondemand"``: admission reserves only the prompt's pages; a
+        sequence takes one more page as it crosses each block boundary. On
+        a dry pool the most recently admitted request is preempted: its
+        pages return to the pool and it re-queues with prompt + generated
+        so far, which a later prefill recomputes exactly.
+
+    prefill_chunk: feed prompts through fixed-width append chunks (the tail
+    chunk shortens at the slot's capacity). prefix_cache: a
+    ``RadixPrefixCache`` over the pool; admission reuses the cached pages
+    of the longest full-block prefix and prefills only the suffix.
+    prompt_buckets: the ladder the (suffix) prefill pads onto
+    (``perf.buckets`` spec; None keeps exact lengths).
+
+    compile: replay the decode step as a CUDA graph; it needs a model on
+    the card, and ``compile=False`` runs the step eagerly on either device.
+    Prefills and chunks stay eager. do_sample / temperature / top_k /
+    top_p / seed: the host token pick. max_queue_depth: shed with
+    ``Overloaded`` past it. default_deadline_s: the deadline of requests
+    submitted without one.
+
+    Not ported yet (ROADMAP, queue 1, item 1), each raising
+    ``NotImplementedError`` when set: ``cache_quant``, ``kv_quant``,
+    ``tier_quant``, ``fused_admission``, ``decode_block``,
+    ``draft_model``, ``host_kv_gib``, ``disk_kv_dir``, ``session_store``.
+    """
+
+    _engine = "paged"
+
+    def __init__(self, model, max_batch: int = 8, s_max: int = 256,
+                 block_size: int = 16, n_pages: Optional[int] = None,
+                 eos_id: Optional[int] = None, compile: bool = True,
+                 policy: str = "reserve",
+                 prefill_chunk: Optional[int] = None,
+                 cache_quant: Optional[str] = None,
+                 kv_quant: Optional[str] = None,
+                 tier_quant: Optional[str] = None,
+                 fused_admission: bool = False,
+                 do_sample: bool = False, temperature: float = 1.0,
+                 top_k: int = 0, top_p: Optional[float] = None,
+                 seed: Optional[int] = None,
+                 decode_block: Optional[int] = None,
+                 max_queue_depth: Optional[int] = None,
+                 default_deadline_s: Optional[float] = None,
+                 prefix_cache: bool = False,
+                 host_kv_gib: Optional[float] = None,
+                 disk_kv_dir: Optional[str] = None,
+                 session_store=None,
+                 prompt_buckets=None,
+                 draft_model=None):
+        waiting = {"cache_quant": cache_quant, "kv_quant": kv_quant,
+                   "tier_quant": tier_quant,
+                   "fused_admission": fused_admission or None,
+                   "decode_block": decode_block, "draft_model": draft_model,
+                   "host_kv_gib": host_kv_gib, "disk_kv_dir": disk_kv_dir,
+                   "session_store": session_store}
+        if prefix_cache and float(_os.environ.get("PADDLE_KV_HOST_GIB", "0")
+                                  or 0.0) > 0:
+            waiting["PADDLE_KV_HOST_GIB"] = _os.environ["PADDLE_KV_HOST_GIB"]
+        for name, value in waiting.items():
+            if value is not None:
+                raise NotImplementedError(
+                    f"PagedContinuousBatcher: {name}={value!r} is not "
+                    "ported yet (ROADMAP, queue 1, item 1)")
+        if policy not in ("reserve", "ondemand"):
+            raise ValueError(f"unknown policy {policy!r}")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        if prefill_chunk is not None and prefill_chunk > s_max:
+            raise ValueError(f"prefill_chunk={prefill_chunk} exceeds "
+                             f"s_max={s_max}")
+        device = next(model.parameters()).device
+        if compile and device.type != "cuda":
+            raise ValueError(
+                f"PagedContinuousBatcher(compile=True) captures the decode "
+                f"step as a CUDA graph, which needs a model on the card "
+                f"(this one is on {device}); pass compile=False to run the "
+                "step eagerly")
+        self._check_window(model.config, s_max)
+        self.model = model
+        self._device = device
+        self.max_batch = max_batch
+        self.s_max = s_max
+        self.block_size = block_size
+        self.blocks_per_seq = -(-s_max // block_size)
+        if n_pages is None:
+            n_pages = max_batch * self.blocks_per_seq
+        self.n_pages = n_pages
+        self.eos_id = eos_id
+        self.policy = policy
+        self.prefill_chunk = prefill_chunk
+        self._do_sample = do_sample
+        self._temperature = temperature
+        self._top_k = top_k
+        self._top_p = top_p
+        self._rng = np.random.RandomState(seed)
+
+        self._scratch = n_pages                     # reserved pool row
+        self._free_pages = list(range(n_pages))
+        self._bt = np.full((max_batch, self.blocks_per_seq), self._scratch,
+                           np.int32)
+        self._dec = np.zeros((max_batch,), np.int32)
+        self._free_slots = list(range(max_batch))
+        self._init_queues(max_queue_depth=max_queue_depth,
+                          default_deadline_s=default_deadline_s)
+        self._admit_order: List[int] = []           # slots, oldest first
+        self._last_tok = np.zeros((max_batch,), np.int64)
+
+        # cross-request radix prefix reuse: admission matches the longest
+        # cached full-block prefix, points the slot's block-table front at
+        # the cached pages and prefills only the suffix; the tree pins pages
+        # under live slots and LRU-evicts idle chains on page pressure
+        self.prefix_cache = (RadixPrefixCache(block_size) if prefix_cache
+                             else None)
+        self._slot_nodes: Dict[int, list] = {}
+        self._prompt_ladder = resolve_ladder(prompt_buckets, hi=s_max)
+        reg = get_registry()
+        self._prefix_hit_c = reg.counter(
+            "serving.prefix_hit_tokens",
+            "prompt tokens served from the radix prefix cache")
+        self._prefix_miss_c = reg.counter(
+            "serving.prefix_miss_tokens",
+            "prompt tokens actually prefilled (no cached prefix)")
+        self._prefix_evict_c = reg.counter(
+            "serving.prefix_evictions",
+            "prefix-cache pages LRU-evicted under page pressure")
+        self._tier_hit_c = reg.counter(
+            "serving.prefix_tier_hit_tokens",
+            "cached prompt tokens served, by the tier they were resident "
+            "in at match time", labelnames=("tier",))
+        self._pages_leaked_g = reg.gauge(
+            "serving.pages_leaked",
+            "pages unaccounted for by free-list + block tables + prefix "
+            "cache (an OOM-much-later bug if ever nonzero)")
+
+        # the device state: one tensor each for the block table, the
+        # timelines and the last tokens, which the host overwrites before
+        # every step, so the captured step's donated leaves never move
+        self._state = paged_state(
+            model.paged_alloc(n_pages + 1, block_size),
+            self._to_device(self._bt), max_batch, 0, block_size,
+            self.blocks_per_seq)
+        self._tok_dev = self._to_device(self._last_tok)
+        if compile:
+            # donate the state (argument 1): the graph appends into the
+            # page pool in place and reads the host's tables from the
+            # state's own tensors
+            self._step_fn = to_static(model.paged_decode_step,
+                                      donate_args=(1,))
+        else:
+            self._step_fn = model.paged_decode_step
+
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(array).to(self._device)
+
+    def close(self):
+        """The JAX package retires its promotion worker here; with no tiers
+        ported there is nothing to retire."""
+
+    # -- page accounting ----------------------------------------------------
+    def _pages_for(self, n_rows: int) -> int:
+        return -(-n_rows // self.block_size)
+
+    def _alloc_pages(self, slot: int, upto_row: int) -> bool:
+        """Grow a slot's block-table row so rows [0, upto_row) are backed. A
+        dry free list LRU-evicts idle prefix-cache chains first (cached but
+        idle pages are reclaimable capacity, not occupancy). Returns False
+        (allocating nothing) if even that cannot cover it."""
+        row = self._bt[slot]
+        need_blocks = self._pages_for(upto_row)
+        have = int(np.sum(row != self._scratch))
+        grow = need_blocks - have
+        if grow <= 0:
+            return True
+        if grow > len(self._free_pages) and self.prefix_cache is not None:
+            self._evict_cache_pages(grow - len(self._free_pages))
+        if grow > len(self._free_pages):
+            return False
+        for b in range(have, need_blocks):
+            row[b] = self._free_pages.pop()
+        return True
+
+    def _evict_cache_pages(self, n: int) -> List[int]:
+        """Reclaim up to n pages from the prefix cache into the free
+        list."""
+        freed = self.prefix_cache.evict(n)
+        if freed:
+            self._free_pages.extend(freed)
+            self._prefix_evict_c.inc(len(freed))
+        return freed
+
+    def _release_row(self, row: np.ndarray, keep=()):
+        """Reset a block-table row to scratch, returning its pages to the
+        free list, except ``keep`` (pages the prefix cache owns: the
+        cache's refcounts, not this row, decide their lifetime)."""
+        for b in range(self.blocks_per_seq):
+            if row[b] != self._scratch:
+                if int(row[b]) not in keep:
+                    self._free_pages.append(int(row[b]))
+                row[b] = self._scratch
+
+    def _release_slot(self, slot: int):
+        keep = ()
+        if self.prefix_cache is not None:
+            nodes = self._slot_nodes.pop(slot, None)
+            if nodes:
+                self.prefix_cache.unpin(nodes)
+                keep = {n.page for n in nodes}
+        self._release_row(self._bt[slot], keep)
+        self._dec[slot] = 0
+        self._free_slots.append(slot)
+        self._admit_order.remove(slot)
+        self.audit_pages()
+
+    def audit_pages(self) -> int:
+        """Reconcile the page pool after every release: free list, block
+        table rows and prefix-cache pages must cover range(n_pages) exactly
+        once (a block-table row and the cache may share a page: that is
+        the prefix cache's point; free and anything else is a double
+        free). Publishes ``serving.pages_leaked`` and raises on any
+        anomaly, so a leak fails the releasing operation instead of
+        surfacing as an out-of-memory much later. Returns the leak count
+        (0 whenever it returns)."""
+        free_set = set(self._free_pages)
+        used = {int(b) for b in self._bt.reshape(-1) if b != self._scratch}
+        cache_pages = set()
+        if self.prefix_cache is not None:
+            cp = self.prefix_cache.pages()
+            cache_pages = set(cp)
+            if len(cache_pages) != len(cp):
+                raise RuntimeError("page accounting bug: prefix cache "
+                                   "holds a page in two nodes")
+        leaked = set(range(self.n_pages)) - free_set - used - cache_pages
+        self._pages_leaked_g.set(len(leaked))
+        if len(free_set) != len(self._free_pages):
+            raise RuntimeError("page accounting bug: free list holds a "
+                               "page twice")
+        double = free_set & (used | cache_pages)
+        if leaked or double:
+            raise RuntimeError(
+                f"page accounting bug: leaked={sorted(leaked)} "
+                f"free-but-used={sorted(double)}")
+        if self.prefix_cache is not None:
+            self.prefix_cache.audit_tiers()
+        return 0
+
+    @property
+    def free_page_count(self) -> int:
+        return len(self._free_pages)
+
+    # -- request lifecycle --------------------------------------------------
+    def _validate(self, prompt: np.ndarray, max_new_tokens: int):
+        super()._validate(prompt, max_new_tokens)
+        worst = len(prompt) + max_new_tokens
+        cap = self.blocks_per_seq * self.block_size
+        if self.prefill_chunk:
+            # chunk padding can demand more rows than the timeline (a
+            # resumed prompt pads up to one chunk beyond); reject now
+            # rather than stall admission later
+            worst = max(worst, min(
+                -(-worst // self.prefill_chunk) * self.prefill_chunk, cap))
+        elif self._prompt_ladder is not None:
+            # the ladder can round a resumed prompt past the timeline too
+            worst = max(worst, min(self._prompt_ladder.bucket(worst), cap))
+        pages = self._pages_for(worst)
+        if pages > self.n_pages:
+            raise ValueError(f"request needs {pages} pages but the pool "
+                             f"holds {self.n_pages}")
+
+    def _admission_plan(self, req: Request, m_rows: int = 0):
+        """The resume ids, chunk or ladder padding and page budget of an
+        admission. ``m_rows`` is the cached-prefix row count: only the
+        suffix is prefilled, so padding applies to the suffix and is
+        clamped to the capacity left after the cached rows. Returns
+        (ids, L, padded_len, upto): the admission ids and their length,
+        the padded timeline length, and the rows to back with pages."""
+        ids_np = np.concatenate(
+            [req.prompt, np.asarray(req.tokens, np.int64)]) \
+            if req.tokens else req.prompt
+        L = len(ids_np)
+        S = L - m_rows
+        cap = self.blocks_per_seq * self.block_size
+        if self.prefill_chunk:
+            pad_s = min(-(-S // self.prefill_chunk) * self.prefill_chunk,
+                        cap - m_rows)
+        elif self._prompt_ladder is not None:
+            pad_s = min(self._prompt_ladder.bucket(S), cap - m_rows)
+        else:
+            pad_s = S
+        padded_len = m_rows + pad_s
+        if self.policy == "reserve":
+            upto = max(padded_len, L + req.max_new_tokens - len(req.tokens))
+        else:
+            upto = max(padded_len, L + 1)
+        return ids_np, L, padded_len, upto
+
+    def _admit(self) -> List[int]:
+        """FIFO admission into free slots, gated by page availability
+        (reserve: the worst case up front; ondemand: the prompt and the
+        first step). The queue's head blocks those behind it, which keeps
+        arrival order. Returns rids that finished at admission."""
+        finished = []
+        while self._pending and self._free_slots:
+            req = self._pending[0]
+            matched = []
+            if self.prefix_cache is not None:
+                ids_full = np.concatenate(
+                    [req.prompt, np.asarray(req.tokens, np.int64)]) \
+                    if req.tokens else req.prompt
+                # at least one suffix token must prefill: the first
+                # generated token needs its logits
+                matched = self.prefix_cache.match(
+                    ids_full, max_blocks=(len(ids_full) - 1)
+                    // self.block_size)
+                if matched:
+                    # pin before the availability gate: the gate may admit
+                    # on the promise of evicting other chains, and eviction
+                    # must not take these pages
+                    self.prefix_cache.pin(matched)
+            m_rows = len(matched) * self.block_size
+            ids_np, L, padded_len, upto = self._admission_plan(req, m_rows)
+            need = self._pages_for(upto) - len(matched)
+            if need > len(self._free_pages) + (
+                    self.prefix_cache.evictable_pages()
+                    if self.prefix_cache is not None else 0):
+                if matched:
+                    self.prefix_cache.unpin(matched)
+                break
+            with self._intake:
+                self._pending.pop(0)
+            slot = self._free_slots.pop(0)
+            if matched:
+                self._bt[slot, :len(matched)] = [n.page for n in matched]
+            if not self._alloc_pages(slot, upto):
+                raise RuntimeError("page accounting bug: admission gate "
+                                   "passed but allocation failed")
+            self._trace_admit_begin(req)
+            self._trace_prefill_begin(req)
+            bt_row = self._to_device(self._bt[slot:slot + 1])
+            S = L - m_rows
+            with torch.no_grad():
+                if self.prefill_chunk:
+                    logits = self._prefill_chunked(ids_np[m_rows:], bt_row,
+                                                   dec0=m_rows)
+                elif m_rows or self._prompt_ladder is not None:
+                    # suffix prefill: S real tokens appended after the
+                    # m_rows cached rows, padded up to the rung (pad rows
+                    # lie past the timeline; decode overwrites them before
+                    # any read)
+                    pad_s = padded_len - m_rows
+                    if pad_s != S:
+                        self._count_pad_waste(pad_s, pad_s - S)
+                    sfx = np.zeros((1, pad_s), np.int64)
+                    sfx[0, :S] = ids_np[m_rows:]
+                    logits, _ = self.model.paged_prefill_into(
+                        self._to_device(sfx), self._state["layers"],
+                        bt_row, self.block_size,
+                        dec_base=self._to_device(
+                            np.array([m_rows], np.int32)),
+                        logits_at=self._to_device(
+                            np.array([S - 1], np.int32)))
+                else:
+                    logits, _ = self.model.paged_prefill_into(
+                        self._to_device(ids_np[None, :]),
+                        self._state["layers"], bt_row, self.block_size)
+            if self.prefix_cache is not None:
+                self._prefix_hit_c.inc(m_rows)
+                self._prefix_miss_c.inc(S)
+                self._tier_hit_c.labels(tier="device").inc(m_rows)
+                self.prefix_cache.hit_tokens += m_rows
+                self.prefix_cache.miss_tokens += S
+                new_nodes = self.prefix_cache.insert(
+                    ids_np, self._bt[slot], len(matched),
+                    L // self.block_size)
+                self._slot_nodes[slot] = list(matched) + new_nodes
+            self._trace_prefill_end(req, prompt_tokens=len(ids_np),
+                                    pages=need, prefix_hit=m_rows,
+                                    padded_to=padded_len)
+            tok = int(self._pick(logits.float().cpu().numpy())[0])
+            req.slot = slot
+            req.tokens.append(tok)
+            self._tele.on_admit()
+            self._tele.on_token(req)
+            self._slot_req[slot] = req
+            self._admit_order.append(slot)
+            self._dec[slot] = len(ids_np)
+            self._last_tok[slot] = tok
+            self._trace_admit_end(req, slot)
+            if self._maybe_finish(req, tok):
+                finished.append(req.rid)
+        return finished
+
+    def _prefill_chunked(self, ids_np, bt_row, dec0: int = 0):
+        """Feed ``ids_np`` through fixed-width append chunks after ``dec0``
+        rows already in the slot's pages (a cached prefix). The tail chunk
+        is zero-padded, and shortened at the slot's capacity; pad rows land
+        past the true timeline and decode overwrites them before any read
+        reaches them. Returns the last real position's logits [1, V]."""
+        C = self.prefill_chunk
+        L = len(ids_np)
+        cap = self.blocks_per_seq * self.block_size
+        padded_len = min(-(-L // C) * C, cap - dec0)
+        padded = np.zeros((1, padded_len), np.int64)
+        padded[0, :L] = ids_np
+        dec = 0
+        logits = None
+        while dec < padded_len:
+            w = min(C, padded_len - dec)     # the tail shortens at capacity
+            has_last = 0 <= (L - 1) - dec < w
+            lg, _ = self.model.paged_prefill_into(
+                self._to_device(padded[:, dec:dec + w]),
+                self._state["layers"], bt_row, self.block_size,
+                dec_base=self._to_device(np.array([dec0 + dec], np.int32)),
+                logits_at=self._to_device(np.array(
+                    [(L - 1) - dec if has_last else 0], np.int32)))
+            if has_last:
+                logits = lg
+            dec += w
+        return logits
+
+    def _sync_tables(self):
+        """Copy the host's block table and timelines into the state's own
+        device tensors (the captured step's donated leaves)."""
+        self._state["block_tables"].copy_(torch.from_numpy(self._bt))
+        self._state["dec_lens"].copy_(torch.from_numpy(self._dec))
+
+    def _preempt_latest(self, protect: int) -> bool:
+        """Evict the most recently admitted active request (not
+        ``protect``) back to the front of the queue; its pages return to
+        the pool. Returns False when there is no victim."""
+        for slot in reversed(self._admit_order):
+            if slot == protect:
+                continue
+            req = self._slot_req.pop(slot)
+            req.slot = None
+            self._release_slot(slot)
+            with self._intake:
+                self._pending.insert(0, req)
+            self._trace_close(req, preempted=1)
+            self._tele.on_preempt()
+            return True
+        return False
+
+    def _grow_for_step(self):
+        """ondemand: every active slot is about to write kv row dec[slot];
+        back it with a page, preempting if the pool is dry."""
+        for slot in list(self._admit_order):
+            if slot not in self._slot_req:
+                continue
+            while not self._alloc_pages(slot, int(self._dec[slot]) + 1):
+                if self._preempt_latest(protect=slot):
+                    continue
+                raise RuntimeError(
+                    f"page pool exhausted: slot {slot} needs a page at "
+                    f"row {int(self._dec[slot])}, no free pages and no "
+                    f"other request to preempt (n_pages={self.n_pages})")
+
+    # -- the engine ---------------------------------------------------------
+    def _slot_active_mask(self) -> np.ndarray:
+        m = np.zeros((self.max_batch,), bool)
+        for slot in self._slot_req:
+            m[slot] = True
+        return m
+
+    def _step_prologue(self):
+        """On-demand page growth, step counters, and the host-to-device
+        table copy. The host owns the block table and the timelines:
+        copying both every step keeps parked slots from drifting (the
+        device step adds 1 to every slot's timeline, the host only to the
+        active ones')."""
+        if self.policy == "ondemand":
+            self._grow_for_step()
+        self._tele.on_step()
+        self._tele.on_occupancy(len(self._slot_req))
+        self._tele.set_gauges(len(self._pending), len(self._slot_req))
+        self._sync_tables()
+
+    def _advance_decoders(self, logits, finished: List[int]):
+        """Consume a step's logits: advance timelines, append the picked
+        tokens, evict finished slots."""
+        self._dec += self._slot_active_mask().astype(np.int32)
+        next_tok = self._pick(logits.float().cpu().numpy())
+        for slot, req in list(self._slot_req.items()):
+            tok = int(next_tok[slot])
+            req.tokens.append(tok)
+            self._tele.on_token(req)
+            self._last_tok[slot] = tok
+            if self._maybe_finish(req, tok):
+                finished.append(req.rid)
+
+    def _decode_tail(self, finished: List[int]):
+        """One decode step for every slot (parked ones into scratch)."""
+        if not self._slot_req:
+            return
+        self._step_prologue()
+        n_active = len(self._slot_req)
+        t0 = _time.perf_counter()
+        self._tok_dev.copy_(torch.from_numpy(self._last_tok))
+        with torch.no_grad():
+            # the pools are updated in place and the host re-uploads the
+            # tables, so the returned state is not kept
+            logits, _ = self._step_fn(self._tok_dev, self._state)
+        self._advance_decoders(logits, finished)
+        self._tele.on_decode_time(_time.perf_counter() - t0, n_active)
+
+    def _step_impl(self) -> List[int]:
+        """Admit, grow pages (ondemand), decode one token per active slot,
+        evict finished. Returns rids finishing during this call."""
+        finished = self._admit()
+        self._decode_tail(finished)
         return finished

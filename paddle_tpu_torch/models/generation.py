@@ -1,10 +1,11 @@
-"""The shared incremental-decode driver and the host token pick
+"""The shared incremental-decode loops and the host token pick
 (counterparts of ``paddle_tpu/models/gpt.py`` ``_generate_loop``,
-``_resolve_s_max`` and ``_select_token``).
+``_resolve_s_max``, ``_select_token`` and the paged-state helpers
+``_paged_state``, ``_paged_prefill_impl`` and ``_paged_generate_loop``).
 
-``generate_loop`` is greedy only: sampling in ``generate`` and beam search
-are not ported yet. ``select_token`` (greedy or sampled, on the host) is
-what the serving batcher picks with.
+``generate_loop`` and ``paged_generate_loop`` are greedy only: sampling in
+``generate`` and beam search are not ported yet. ``select_token`` (greedy
+or sampled, on the host) is what the serving batchers pick with.
 """
 from __future__ import annotations
 
@@ -103,3 +104,77 @@ def select_token(logits_np, do_sample, temperature, top_k, top_p, rng):
             probs /= probs.sum()
         out[b] = rng.choice(probs.shape[-1], p=probs)
     return out
+
+
+def paged_state(layers_state, bt, b, s, block_size, blocks_per_seq):
+    """The shared paged-decode state: the per-layer ``(kc, vc)`` pools, the
+    block table, each sequence's timeline length (``dec_lens``), the block
+    size and capacity (Python ints), and the batch-size-only constants the
+    decode step passes to the attention, built once: ``cu_b``, the packing
+    of one token a sequence, is a tuple of ints, since the attention reads
+    it on the host (a captured step keys it by value)."""
+    def ints(fill):
+        return torch.full((b,), fill, dtype=torch.int32, device=bt.device)
+    return {"layers": layers_state, "block_tables": bt,
+            "dec_lens": ints(s), "block_size": block_size,
+            "capacity": blocks_per_seq * block_size,
+            "zeros_b": ints(0), "ones_b": ints(1),
+            "cu_b": tuple(range(b + 1))}
+
+
+def paged_prefill_impl(model, input_ids, block_size, blocks_per_seq):
+    """Prefill into a fresh pool: ``blocks_per_seq`` pages a sequence
+    (default: enough for ``max_position_embeddings``), an identity block
+    table, the model's pool-writing prefill, the state dict."""
+    b, s = input_ids.shape
+    if blocks_per_seq is None:
+        blocks_per_seq = -(-model.config.max_position_embeddings
+                           // block_size)
+    n_blocks = b * blocks_per_seq
+    bt = torch.arange(n_blocks, dtype=torch.int32,
+                      device=input_ids.device).view(b, blocks_per_seq)
+    layers = model.paged_alloc(n_blocks, block_size)
+    logits, layers_state = model.paged_prefill_into(input_ids, layers, bt,
+                                                    block_size)
+    return logits, paged_state(layers_state, bt, b, s, block_size,
+                               blocks_per_seq)
+
+
+def paged_generate_loop(model, input_ids, max_new_tokens, block_size,
+                        blocks_per_seq, decode_fn):
+    """Greedy decode over a paged cache: validate the capacity, prefill,
+    then step ``decode_fn`` (default ``model.paged_decode_step``) and pick
+    with ``argmax`` on the device. Returns int64 ids
+    ``[B, S + max_new_tokens]``.
+
+    The state's tensors stay the same across steps: each step's new
+    ``dec_lens`` is copied into the state's own, so a step captured as a
+    CUDA graph with the state donated (``jit.to_static(...,
+    donate_args=(1,))``) is captured once."""
+    b, s = input_ids.shape
+    needed = s + max_new_tokens
+    if needed > model.config.max_position_embeddings:
+        # past the RoPE table the positions would clamp and corrupt pages
+        raise ValueError(
+            f"prompt {s} + {max_new_tokens} new tokens exceeds "
+            f"max_position_embeddings="
+            f"{model.config.max_position_embeddings}")
+    if blocks_per_seq is None:
+        blocks_per_seq = -(-needed // block_size)
+    elif needed > blocks_per_seq * block_size:
+        raise ValueError(
+            f"paged cache capacity {blocks_per_seq * block_size} too "
+            f"small for prompt {s} + {max_new_tokens} new tokens")
+    logits, state = model.paged_prefill(input_ids, block_size,
+                                        blocks_per_seq)
+    step = decode_fn if decode_fn is not None else model.paged_decode_step
+    toks = [input_ids]
+    tok = torch.argmax(logits, dim=-1)
+    for i in range(max_new_tokens):
+        toks.append(tok.view(b, 1))
+        if i + 1 == max_new_tokens:
+            break
+        logits, new_state = step(tok.to(input_ids.dtype), state)
+        state["dec_lens"].copy_(new_state["dec_lens"])
+        tok = torch.argmax(logits, dim=-1)
+    return torch.cat([x.long() for x in toks], dim=1)

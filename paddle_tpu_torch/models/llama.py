@@ -12,10 +12,14 @@ Training and the full forward take an optional additive ``attn_mask``
 ``[b, 1 | h, s, s]`` (float32 or the model's type), the whole attention
 spec: with a mask the attention runs non-causal, as in the JAX package.
 
-``prefill(n_valid=)`` and ``decode_step`` are what the serving batcher
-(``inference/serving.py``) drives. Not ported yet: MoE, context
-parallelism, the paged routes, beam search, sampling in ``generate`` and
-int8 caches. ``scan_layers`` is accepted and
+``prefill(n_valid=)`` and ``decode_step`` are what the dense serving
+batcher (``inference/serving.py``) drives; the paged route
+(``paged_alloc``, ``paged_prefill_into``, ``paged_prefill``,
+``paged_decode_step``, ``generate_paged``) is what the paged batcher drives,
+its attention ``incubate.nn.functional.block_gqa_attention`` over a page
+pool. Not ported yet: MoE, context parallelism, the fused paged step,
+speculative decode, beam search, sampling in ``generate`` and int8
+caches. ``scan_layers`` is accepted and
 runs the unrolled stack (in the JAX package it is a compile-time device
 with the unrolled loop's numerics); selective recompute recomputes whole
 layers, as the JAX package's unrolled path does.
@@ -31,9 +35,11 @@ from torch import nn
 
 from ..device import default_device, to_torch_dtype
 from ..distributed.fleet.recompute import recompute
+from ..incubate.nn.functional.decode_attention import block_gqa_attention
 from ..nn import functional as F
 from ..nn.layers import Embedding, Linear, RMSNorm
-from .generation import generate_loop, resolve_s_max
+from .generation import (generate_loop, paged_generate_loop,
+                         paged_prefill_impl, resolve_s_max)
 
 NEG_INF = -1e30
 
@@ -383,6 +389,148 @@ class LlamaForCausalLM(nn.Module):
         return generate_loop(lambda: self.prefill(input_ids, s_max),
                              self.decode_step, input_ids, max_new_tokens,
                              eos_id=eos_id, pad_id=pad_id)
+
+    # -- paged-KV serving route (block table over a page pool, GQA-native) --
+
+    def _check_paged_servable(self):
+        if self.config.scan_layers:
+            raise ValueError("paged decode needs the unrolled stack: build "
+                             "the model with scan_layers=False for serving")
+
+    def paged_alloc(self, n_pages, block_size=64, cache_dtype=None):
+        """The physical page pool: per layer, ``(kc, vc)`` of
+        ``[n_pages, KV, block_size, D]`` zeros in the model's type (GQA
+        caches at kv-head count) on the model's device."""
+        cfg = self.config
+        dtype = to_torch_dtype(cache_dtype or cfg.dtype)
+        if dtype == torch.int8:
+            raise NotImplementedError(
+                "int8 KV pages are not ported yet (ROADMAP, queue 1, "
+                "item 3: int8 caches)")
+        shape = (n_pages, cfg.num_key_value_heads, block_size, cfg.head_dim)
+        device = self.model.embed_tokens.weight.device
+        return [(torch.zeros(shape, dtype=dtype, device=device),
+                 torch.zeros(shape, dtype=dtype, device=device))
+                for _ in range(cfg.num_hidden_layers)]
+
+    @torch.no_grad()
+    def paged_prefill_into(self, input_ids, layers, block_tables,
+                           block_size=64, dec_base=None, logits_at=None,
+                           dynamic_cache_scales=False, cache_scales=None,
+                           dynamic_scale_valid=None, logits_all=False):
+        """Prompt pass writing post-RoPE K and raw V into a caller-owned
+        page pool (in place). input_ids ``[B, s]``; block_tables
+        ``[B, blocks_per_seq]`` int on the ids' device. Returns
+        ``(logits [B, V], layers)``: the logits of the last position, or,
+        with ``logits_at`` ``[B]``, of that position of each row.
+
+        dec_base ``[B]`` int32: chunked-prefill append mode; the ids are
+        appended after ``dec_base`` rows already in the pool, at RoPE
+        positions ``dec_base + local``.
+
+        Not ported: the int8 pools (``dynamic_cache_scales``,
+        ``cache_scales``, ``dynamic_scale_valid``) and speculative verify
+        (``logits_all``); they raise ``NotImplementedError``."""
+        if dynamic_cache_scales or cache_scales is not None \
+                or dynamic_scale_valid is not None:
+            raise NotImplementedError(
+                "int8 KV pages are not ported yet (ROADMAP, queue 1, "
+                "item 3: int8 caches)")
+        if logits_all:
+            raise NotImplementedError(
+                "paged_prefill_into(logits_all=True) is speculative "
+                "decode's verify pass, not ported yet (ROADMAP, queue 1, "
+                "item 3)")
+        self._check_paged_servable()
+        cfg = self.config
+        b, s = input_ids.shape
+        h, kvh, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                     cfg.head_dim)
+        dev = input_ids.device
+
+        def ints(fill):
+            return torch.full((b,), fill, dtype=torch.int32, device=dev)
+        if dec_base is None:
+            enc, dec = ints(s), ints(0)
+        else:
+            enc, dec = ints(0), dec_base
+        this = ints(s)
+        cu_q = torch.arange(b + 1, dtype=torch.int32) * s   # on the host
+        model = self.model
+        hidden = model.embed_tokens(input_ids)               # [B, s, E]
+        layers_state = []
+        for layer, (kc, vc) in zip(model.layers, layers):
+            attn = layer.self_attn
+            x = layer.input_layernorm(hidden)
+            out, kc, vc = block_gqa_attention(
+                attn.q_proj(x).reshape(b * s, h, d),
+                attn.k_proj(x).reshape(b * s, kvh, d),
+                attn.v_proj(x).reshape(b * s, kvh, d), kc, vc, enc, dec,
+                this, cu_q, block_tables, block_size=block_size,
+                rope_cos=model._cos, rope_sin=model._sin)
+            hidden = hidden + attn.o_proj(out.reshape(b, s, h * d))
+            hidden = hidden + layer.mlp(
+                layer.post_attention_layernorm(hidden))
+            layers_state.append((kc, vc))
+        hidden = model.norm(hidden)
+        if logits_at is not None:
+            # only the requested position through the LM head (the JAX
+            # package selects it with a one-hot product, which is exact)
+            rows = hidden[torch.arange(b, device=dev),
+                          logits_at.reshape(b).long()]
+        else:
+            rows = hidden[:, s - 1]
+        return self._lm_logits(rows), layers_state
+
+    def paged_prefill(self, input_ids, block_size=64, blocks_per_seq=None):
+        """Prompt pass through a freshly allocated paged cache. Returns
+        ``(last_logits [B, V], state)``, the state in the shared paged
+        convention (``generation.paged_state``)."""
+        return paged_prefill_impl(self, input_ids, block_size,
+                                  blocks_per_seq)
+
+    @torch.no_grad()
+    def paged_decode_step(self, tok, state):
+        """One token per sequence through the paged GQA cache. tok ``[B]``.
+        Writes each sequence's row at ``state["dec_lens"]`` into the pools
+        in place and reads nothing back to the host, so
+        ``jit.to_static(model.paged_decode_step, donate_args=(1,))`` serves
+        every step with one CUDA graph. Returns ``(logits [B, V],
+        new_state)``: the same pools, ``dec_lens + 1``."""
+        self._check_paged_servable()
+        cfg = self.config
+        b = tok.shape[0]
+        h, kvh, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                     cfg.head_dim)
+        t = state["dec_lens"]
+        model = self.model
+        hidden = model.embed_tokens(tok.reshape(b, 1))       # [B, 1, E]
+        new_layers = []
+        for layer, (kc, vc) in zip(model.layers, state["layers"]):
+            attn = layer.self_attn
+            x = layer.input_layernorm(hidden)
+            out, kc, vc = block_gqa_attention(
+                attn.q_proj(x).reshape(b, h, d),
+                attn.k_proj(x).reshape(b, kvh, d),
+                attn.v_proj(x).reshape(b, kvh, d), kc, vc,
+                state["zeros_b"], t, state["ones_b"], state["cu_b"],
+                state["block_tables"], block_size=state["block_size"],
+                rope_cos=model._cos, rope_sin=model._sin)
+            hidden = hidden + attn.o_proj(out.reshape(b, 1, h * d))
+            hidden = hidden + layer.mlp(
+                layer.post_attention_layernorm(hidden))
+            new_layers.append((kc, vc))
+        logits = self._lm_logits(model.norm(hidden)[:, 0])  # [B, V]
+        return logits, dict(state, layers=new_layers, dec_lens=t + 1)
+
+    @torch.no_grad()
+    def generate_paged(self, input_ids, max_new_tokens, block_size=64,
+                       blocks_per_seq=None, decode_fn=None):
+        """Greedy decode over the paged GQA cache. Returns int64 ids
+        ``[B, S + max_new_tokens]``; ``decode_fn`` replaces
+        ``paged_decode_step`` (a captured one, for instance)."""
+        return paged_generate_loop(self, input_ids, max_new_tokens,
+                                   block_size, blocks_per_seq, decode_fn)
 
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
