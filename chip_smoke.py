@@ -32,7 +32,9 @@ Phases, each printing JSON lines (any failure exits non-zero):
    apart from the train phase's profile, whose norms have that shape). The
    batcher's shapes: the forward at one prompt a call at every bucket of
    its traffic (64-1024), timed at [1, 512, 32, 128], and the RMSNorm
-   forward timed at its decode rows [8, 1, 4096]. The
+   forward timed at its decode rows [8, 1, 4096] and at the paged
+   batcher's fused step's [72, 4096] (8 decode rows and a 64-token
+   chunk). The
    flash kernels' dropout builds: cases against the plain versions with
    the same seed (bf16 and float32, causal or not, 12:12 and 32:8 heads,
    s 512, 300 and 2048, d 64 and 128, with and without a float32 mask), a
@@ -79,16 +81,19 @@ Phases, each printing JSON lines (any failure exits non-zero):
    PagedContinuousBatcher. Run A: benchmarks/bench_decode.py's
    configuration (block 64, 64-token prefill chunks, pages on demand; 8
    slots, s_max 1024) over the batcher phase's traffic, eagerly and with
-   the decode step replayed as a CUDA graph. Run B: bench_gateway.py's
+   the decode step and the 64-token chunk replayed as CUDA graphs. Run B:
+   bench_gateway.py's
    (pages on demand, the prefix cache, the pow2 ladder) at block 16 and
    228 pages over 24 requests sharing 4 system prompts of 512 tokens,
    graphed, and the same traffic eagerly with no prefix cache in the
    default pool ("B plain"). Then generate_paged at the serve phase's
    shape. Checks: every request completes at its full length; Run A's
-   graphed tokens equal its eager ones with one capture; Run B preempts
-   and hits the prefix cache; no page leaks; the RMSNorm launch counts
-   (65 a prefill call or chunk and a decode step; graphed, 65 for the
-   warm-up and the capture, the replays counted by to_static), the
+   graphed tokens equal its eager ones with one capture of the decode
+   step and one of the chunk, whose replays are as many as the eager
+   run's chunks; Run B preempts and hits the prefix cache; no page leaks;
+   the RMSNorm launch counts (65 a prefill call or chunk and a decode
+   step; graphed, 65 for the warm-up and the capture, the replays counted
+   by to_static), the
    profiles of 4 admissions and 8 steps (the RMSNorm vector build, no
    flash kernel) and the RMSNorm forward against its plain version at
    every prefill shape the runs gave it; where the paged tokens differ
@@ -100,6 +105,22 @@ Phases, each printing JSON lines (any failure exits non-zero):
    idle share, peak memory, preemptions, prefix hit and miss tokens, and
    a step's device ms by part (gather and cast, attention, weight
    products, norms).
+4d. fused: benchmarks/bench_decode.py:207-211's configuration, Run A's
+   with fused admission (one 64-token chunk a step inside the decode
+   step's call, Llama's paged_fused_step), over Run A's traffic, graphed:
+   per step, then with decode_block=8 (K decode steps a call, the argmax
+   on the card), then in a pool of 15 pages, which aborts an admission.
+   Checks: every request completes at its full length; one capture of
+   the fused step (and of the block) a run, every step a replay; blocks
+   run and give the per-step run's tokens exactly; the abort; no page
+   leaks; 65 RMSNorm launches a fused step, decode step and block
+   sub-step and nothing else; the profile of 4 fused steps (7 decoders
+   and a chunk) shows the RMSNorm vector build only; the RMSNorm forward
+   against its plain version at [72, 4096]; where the fused tokens leave
+   Run A graphed's, or the small pool's the fused run's, both picks lie
+   within the paged phase's bf16 spread. Per run: steps, fused steps,
+   blocks, tokens/s, step ms, TTFT, aborts, peak memory; the fused step's
+   wall and device ms, idle share, and device ms by part.
 5. train: Llama-2-7B width at 8 of its 32 layers trains 5 steps of
    4 x 2048 tokens (AdamW, amp.decorate O2 bf16, recompute, TrainStep);
    the launch counts of one step prove the path ran every kernel, and its
@@ -643,7 +664,8 @@ def phase_kernels(seed):
     for shape, key in (((4 * 512, 4096), None),
                        ((4 * 2048, 4096), "train_shape"),
                        ((4, 1, 4096), "decode_shape"),
-                       ((8, 1, 4096), "batcher_decode_shape")):
+                       ((8, 1, 4096), "batcher_decode_shape"),
+                       ((FUSED_ROWS, 4096), "fused_step_shape")):
         (x, w), rrec = rms_case(gen, bf16, shape)
         n = x.numel()
         rows = n // x.shape[-1]
@@ -666,7 +688,7 @@ def phase_kernels(seed):
             rms = rec                      # the summary line's shape
         else:
             # the train step's shape (33 launches a step), generate's
-            # decode and the batcher's
+            # decode, the batchers' and the paged batcher's fused step
             rms[key] = {k: rec[k] for k in ("shape", "build", "threads",
                                             "max_abs_err", "tol", "ms",
                                             "plain_ms", "bound_ms",
@@ -1883,6 +1905,18 @@ PAGED_A = dict(max_batch=8, s_max=1024, block_size=64, prefill_chunk=64,
 # that 8 full slots would take) make seed 0's traffic preempt.
 PAGED_B = dict(max_batch=8, s_max=1024, block_size=16, n_pages=228,
                policy="ondemand", prefix_cache=True, prompt_buckets="pow2")
+# The fused phase: benchmarks/bench_decode.py:207-211's configuration, Run
+# A's with fused admission (one 64-token chunk a step inside the decode
+# step's call), then with decode_block=8. Its step norms B + C rows.
+FUSED = dict(PAGED_A, fused_admission=True)
+FUSED_ROWS = PAGED_A["max_batch"] + PAGED_A["prefill_chunk"]
+# The fused run's pool small enough that seed 0's traffic aborts an
+# admission: an abort needs a lone decoder to cross into a new page while
+# the admission in flight holds every other page. Simulated on the host
+# with this batcher (its page accounting does not read the tokens), the
+# traffic aborts one admission at 15 pages and at no other size from 13
+# (its largest request) to 128 (every slot's worst case).
+FUSED_SMALL_PAGES = 15
 
 
 def paged_traffic(seed, vocab):
@@ -1907,7 +1941,8 @@ def count_calls(obj, name):
 
     def counted(*args, **kw):
         box[0] += 1
-        box[1].add(tuple(args[0].shape))
+        if args:
+            box[1].add(tuple(args[0].shape))
         return fn(*args, **kw)
     setattr(obj, name, counted)
     return box
@@ -1915,13 +1950,15 @@ def count_calls(obj, name):
 
 def paged_run(model, traffic, config, compile):
     """Serve `traffic` through a new PagedContinuousBatcher(**config): 12
-    requests up front and 12 after the 5th step. The launch counters and
-    the model's paged_prefill_into calls (one a prefill or a chunk) are
-    set to 0 just before and read just after; the batcher audits its pages
-    after every release. The report also holds the shapes of the ids the
-    prefill calls took and each request's prefix-cache hit rows at each of
-    its admissions. Returns (each request's full sequence, the run's
-    report, the batcher)."""
+    requests up front and 12 after the 5th step. The launch counters, the
+    model's paged_prefill_into calls (one a prefill or a chunk, or a
+    graph's warm-up or capture) and the batcher's aborted fused admissions
+    are set to 0 just before and read just after; the batcher audits its
+    pages after every release. The report also holds the shapes of the ids
+    the prefill calls took, each captured function's captures and replays,
+    and each request's prefix-cache hit rows at each of its admissions.
+    Returns (each request's full sequence, the run's report, the
+    batcher)."""
     from paddle_tpu_torch.inference import PagedContinuousBatcher
     from paddle_tpu_torch.observability.metrics import get_registry
     from paddle_tpu_torch.ops.hopper import launch_counts, reset_launch_counts
@@ -1931,10 +1968,12 @@ def paged_run(model, traffic, config, compile):
     torch.cuda.reset_peak_memory_stats()
     b = PagedContinuousBatcher(model, compile=compile, **config)
     calls = count_calls(model, "paged_prefill_into")
+    aborts = count_calls(b, "_abort_admission")
     hits, prefill_end = {}, b._trace_prefill_end
 
     def record_hit(req, **tags):
-        hits.setdefault(req.rid, []).append(tags["prefix_hit"])
+        # fused admissions use no prefix cache and record no hit
+        hits.setdefault(req.rid, []).append(tags.get("prefix_hit", 0))
         return prefill_end(req, **tags)
     b._trace_prefill_end = record_hit
     reset_launch_counts()
@@ -1948,7 +1987,10 @@ def paged_run(model, traffic, config, compile):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
-    del model.paged_prefill_into
+    # the wrappers close over bound methods of b: left in place, they
+    # would keep b (its pools and graphs) alive past `del b`, until a
+    # full garbage collection
+    del model.paged_prefill_into, b._abort_admission, b._trace_prefill_end
     outs.update({rid: b.pop_result(rid) for rid in early})
     stats = b.stats()
 
@@ -1975,22 +2017,28 @@ def paged_run(model, traffic, config, compile):
         "prefix_miss_tokens": reg.get("serving.prefix_miss_tokens").value,
         "prefix_evictions": reg.get("serving.prefix_evictions").value,
         "pages_leaked": reg.get("serving.pages_leaked").value,
+        "aborted_admissions": aborts[0],
         "wrapper_counts": launches,
-        "captures": getattr(b._step_fn, "captures", 0),
-        "replays": getattr(b._step_fn, "replays", 0),
+        # per captured function: [captures, replays] (graphed runs)
+        "graphs": {name: [fn.captures, fn.replays] for name, fn in (
+            (name, getattr(b, f"_{name}_fn", None))
+            for name in ("step", "chunk", "fused", "block"))
+            if hasattr(fn, "replays")},
         "stats": stats,
         "prefix_hit_rows": [hits.get(r, []) for r in rids],
     }
     return [outs[r] for r in rids], report, b
 
 
-def paged_step_split(b, reps=20):
+def paged_step_split(b, reps=20, chunk=0):
     """Device ms of one decode step's parts at the batcher's state (its page
     pool, block table and timelines), each timed alone with CUDA events
     (median of `reps`) and multiplied by the step's count of it: the
     timeline gather and float32 cast of K and V, the attention over them
     (scores, mask, softmax, P V), the weight products (7 a layer and the
-    LM head) and the 65 norms."""
+    LM head) and the 65 norms. With `chunk` C, the fused step's parts: the
+    products and norms over B + C rows, one more timeline gathered (the
+    admission's) and its C tokens attended over it."""
     from paddle_tpu_torch.incubate.nn.functional import decode_attention
     model, cfg = b.model, b.model.config
     layers, bsz = cfg.num_hidden_layers, b.max_batch
@@ -2001,7 +2049,8 @@ def paged_step_split(b, reps=20):
     bt = b._state["block_tables"].long()
     dec = b._state["dec_lens"].long()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn(bsz, 1, cfg.hidden_size, generator=gen, device="cuda",
+    rows = bsz + chunk
+    x = torch.randn(rows, cfg.hidden_size, generator=gen, device="cuda",
                     dtype=kc.dtype)
     q = torch.randn(bsz, 1, h, d, generator=gen, device="cuda",
                     dtype=kc.dtype)
@@ -2027,7 +2076,7 @@ def paged_step_split(b, reps=20):
             times.append(start.elapsed_time(end))
         return sorted(times)[reps // 2]
 
-    wide = torch.zeros(bsz, 1, cfg.intermediate_size, device="cuda",
+    wide = torch.zeros(rows, cfg.intermediate_size, device="cuda",
                        dtype=x.dtype)
 
     def products():
@@ -2036,18 +2085,35 @@ def paged_step_split(b, reps=20):
             lin(x)
         mlp.down_proj(wide)
 
+    def gather(table):
+        return (decode_attention._gather_paged(kc, table),
+                decode_attention._gather_paged(vc, table))
+
     with torch.no_grad():
-        return {
-            "gather_and_cast": layers * events(lambda: (
-                decode_attention._gather_paged(kc, bt),
-                decode_attention._gather_paged(vc, bt))),
+        split = {
+            "gather_and_cast": layers * events(lambda: gather(bt)),
             "attention": layers * events(lambda: decode_attention._attend(
                 q, gk, gv, dec[:, None], dec + 1)),
-            "weight_products": layers * events(products)
-            + events(lambda: model._lm_logits(x)),
+            # the LM head over the decode rows (and the chunk's one row)
+            "weight_products": layers * events(products) + events(
+                lambda: [model._lm_logits(x[:n]) for n in (bsz, 1)[
+                    :1 + bool(chunk)]]),
             "norms": (2 * layers + 1) * events(
                 lambda: layer.input_layernorm(x)),
         }
+        if chunk:
+            # the admission's timeline (any table row: each gathers all
+            # its pages) and its chunk, in the middle of a 512-token prompt
+            qc = torch.randn(1, chunk, h, d, generator=gen, device="cuda",
+                             dtype=kc.dtype)
+            gkc, gvc = gather(bt[:1])
+            pos = torch.arange(448, 448 + chunk, device="cuda")[None]
+            split["gather_and_cast"] += layers * events(
+                lambda: gather(bt[:1]))
+            split["attention"] += layers * events(
+                lambda: decode_attention._attend(
+                    qc, gkc, gvc, pos, pos[:, -1] + 1))
+    return split
 
 
 def paged_profile(b, prompt=512, new=64, admit=4):
@@ -2188,22 +2254,34 @@ def phase_paged(seed, model, dense_tokens):
                 fail(f"paged run {mode} returned {len(o)} tokens for a "
                      f"prompt of {len(p)} and {n} new ones, or lost the "
                      "prompt")
+        # the wrapper counts 65 a Python call of the model (a prefill, a
+        # chunk, an eager step, a graph's warm-up and its capture); each
+        # replay launches its graph's 65 again, and a capture launches
+        # nothing
+        graphs = rep["graphs"]
+        (step_c, step_r), (chunk_c, chunk_r) = (
+            graphs.get(g, (0, 0)) for g in ("step", "chunk"))
         expect = dict.fromkeys(KERNELS, 0)
         expect["rms_norm"] = norms * (rep["prefill_calls"] + (
-            2 * rep["captures"] if compile else rep["steps"]))
+            2 * step_c if compile else rep["steps"]))
         rep["launches"] = dict(rep["wrapper_counts"])
-        rep["launches"]["rms_norm"] += norms * (rep["replays"] -
-                                                rep["captures"])
+        rep["launches"]["rms_norm"] += norms * (step_r - step_c
+                                                + chunk_r - chunk_c)
+        # the prefills and chunks the batcher ran (graphed: chunk replays)
+        rep["prefill_runs"] = rep["prefill_calls"] - 2 * chunk_c + chunk_r
         emit({"phase": "paged", "run": name, "mode": mode, "layers": layers,
               "requests": len(traffic), **rep})
         if rep["admissions"] < len(traffic):
             fail(f"paged run {mode} admitted {rep['admissions']} of "
                  f"{len(traffic)}")
+        chunked = compile and config.get("prefill_chunk")
         if rep["wrapper_counts"] != expect or (compile and (
-                rep["captures"] != 1 or rep["replays"] != rep["steps"])):
+                step_c != 1 or step_r != rep["steps"]
+                or chunk_c != (1 if chunked else 0))):
             fail(f"paged run {mode} launch counts {rep['wrapper_counts']} "
-                 f"({rep['captures']} captures, {rep['replays']} replays of "
-                 f"{rep['steps']} steps), expected {expect}")
+                 f"(graphs {graphs}, {rep['steps']} steps), expected "
+                 f"{expect}, one decode step capture and "
+                 f"{int(bool(chunked))} chunk capture")
         if rep["pages_leaked"] != 0:
             fail(f"paged run {mode} leaked {rep['pages_leaked']} pages")
         if mode == "B graphed" and (rep["preemptions"] < 1
@@ -2220,8 +2298,11 @@ def phase_paged(seed, model, dense_tokens):
         outs[mode], counts[mode], reps[mode] = got, rep["launches"], rep
     if any(not np.array_equal(a, g)
            for a, g in zip(outs["A eager"], outs["A graphed"])):
-        fail("the graphed paged decode step gave other tokens than the "
-             "eager one")
+        fail("the graphed paged decode step and chunk gave other tokens "
+             "than the eager ones")
+    if reps["A graphed"]["prefill_runs"] != reps["A eager"]["prefill_runs"]:
+        fail(f"Run A graphed replayed {reps['A graphed']['prefill_runs']} "
+             f"chunks, eager ran {reps['A eager']['prefill_runs']}")
 
     # generate_paged at the serve phase's shape, beside generate
     ids = torch.randint(0, cfg.vocab_size, (4, 512),
@@ -2305,6 +2386,151 @@ def phase_paged(seed, model, dense_tokens):
             if r["gap"] > spread]
     if over:
         fail(f"paged and dense picks, or prefix-cache and plain ones, "
+             f"differ by more than the bf16 spread {spread}: {over}")
+    return counts, spread, outs["A graphed"]
+
+
+def fused_profile(b, prompt=512, short=64, new=64):
+    """Fill all slots but one with `short`-token prompts (one chunk each),
+    then admit a `prompt`-token one into the last: time half of its fused
+    steps (7 decoders and a chunk each) and profile the other half, then
+    time the fused step's parts (paged_step_split with the chunk)."""
+    rng = np.random.RandomState(0)
+    vocab = b.model.config.vocab_size
+    live = [b.submit(rng.randint(0, vocab, short), new)
+            for _ in range(b.max_batch - 1)]
+    for _ in range(b.max_batch - 1):
+        b.step()
+    live.append(b.submit(rng.randint(0, vocab, prompt), new))
+    half = prompt // b.prefill_chunk // 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(half):
+        b.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / half
+    steps = profile_one(b.step, calls=half)
+    split = paged_step_split(b, chunk=b.prefill_chunk)
+    for rid in live:
+        b.abort(rid)
+    b.audit_pages()
+    device_ms = (steps["device_ms"] / half if steps["device_ms"] !=
+                 "not measured" else "not measured")
+    if device_ms != "not measured":
+        split["other"] = device_ms - sum(split.values())
+    return {"fused_steps": steps, "fused_step_wall_ms": wall_ms,
+            "fused_step_device_ms": device_ms, "fused_step_split_ms": split,
+            "device_idle_share": (1 - device_ms / wall_ms
+                                  if device_ms != "not measured"
+                                  else "not measured")}
+
+
+def phase_fused(seed, model, spread, run_a):
+    """The paged batcher's fused admission and K-step decode blocks at
+    Llama-2-7B width (bf16, 32 layers, random weights from --seed), all
+    graphed: Run A's traffic through FUSED (one 64-token chunk a step
+    inside the decode step's call), then with decode_block=8, then with
+    FUSED_SMALL_PAGES pages. Checks: every request completes at its full
+    length; each run captures the fused step once (and the block once);
+    the block run runs blocks and gives the per-step run's tokens exactly;
+    the small pool aborts an admission; no page leaks; the RMSNorm wrapper
+    and to_static's replays count 65 launches a fused step, decode step
+    and block sub-step and nothing else launches; the profile of 4 fused
+    steps (7 decoders and a chunk) shows the RMSNorm vector build only and
+    no flash kernel; the RMSNorm forward against its plain version at the
+    fused step's rows. Where the fused tokens leave Run A graphed's
+    (`run_a`), or the small pool's leave the fused run's, the two picks lie
+    within the paged phase's bf16 spread (`spread`) against a float32 copy.
+    Returns each run's launches (the replays' included)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b_config
+    from paddle_tpu_torch.ops.hopper import KERNELS
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    norms = 2 * layers + 1
+    traffic = batcher_traffic(seed, cfg.vocab_size)
+    k_block = 8                   # benchmarks/bench_decode.py:207
+    outs, counts, reps = {}, {}, {}
+    for mode, config in (
+            ("fused", FUSED),
+            ("fused block", dict(FUSED, decode_block=k_block)),
+            ("fused small", dict(FUSED, n_pages=FUSED_SMALL_PAGES))):
+        got, rep, b = paged_run(model, traffic, config, True)
+        if mode == "fused":
+            rep["profile"] = fused_profile(b)
+        del b
+        torch.cuda.empty_cache()
+        for (p, n), o in zip(traffic, got):
+            if len(o) != len(p) + n or not np.array_equal(o[:len(p)], p):
+                fail(f"{mode} run returned {len(o)} tokens for a prompt of "
+                     f"{len(p)} and {n} new ones, or lost the prompt")
+        k = config.get("decode_block") or 0
+        graphs = rep["graphs"]
+        (step_c, step_r), (fused_c, fused_r), (block_c, block_r) = (
+            graphs.get(g, (0, 0)) for g in ("step", "fused", "block"))
+        # as in the paged phase: 65 a Python call of a step (a block's
+        # call: 65 a sub-step), 65 a replay, a capture launches nothing
+        expect = dict.fromkeys(KERNELS, 0)
+        expect["rms_norm"] = norms * 2 * (step_c + fused_c + k * block_c)
+        rep["launches"] = dict(rep["wrapper_counts"])
+        rep["launches"]["rms_norm"] += norms * (
+            step_r - step_c + fused_r - fused_c + k * (block_r - block_c))
+        rep["fused_steps"], rep["decode_steps"] = fused_r, step_r
+        rep["decode_blocks"] = rep["stats"]["decode_blocks"]
+        emit({"phase": "fused", "mode": mode, "layers": layers,
+              "requests": len(traffic), **rep})
+        if rep["admissions"] < len(traffic):
+            fail(f"{mode} run admitted {rep['admissions']} of "
+                 f"{len(traffic)}")
+        if rep["wrapper_counts"] != expect or rep["prefill_calls"] or (
+                fused_c, step_c, block_c) != (1, 1, int(k > 0)) or \
+                step_r + fused_r + k * block_r != rep["steps"]:
+            fail(f"{mode} run launch counts {rep['wrapper_counts']} (graphs "
+                 f"{graphs}, {rep['prefill_calls']} prefill calls, "
+                 f"{rep['steps']} steps), expected {expect}, one capture "
+                 "each and every step a replay")
+        if k and not 0 < block_r == rep["decode_blocks"]:
+            fail(f"{mode} run: {rep['decode_blocks']} decode blocks, "
+                 f"{block_r} block replays")
+        if rep["pages_leaked"] != 0:
+            fail(f"{mode} run leaked {rep['pages_leaked']} pages")
+        if mode == "fused small" and rep["aborted_admissions"] < 1:
+            fail(f"{mode} run ({FUSED_SMALL_PAGES} pages) aborted no "
+                 "admission")
+        if mode == "fused":
+            prof = rep["profile"]["fused_steps"]
+            rms_vector_only(prof, f"{mode} steps", ["rms_norm_fwd_vec"])
+            if prof["flash_fwd_kernels"]:
+                fail(f"{mode} steps ran a flash forward")
+        outs[mode], counts[mode], reps[mode] = got, rep["launches"], rep
+    if any(not np.array_equal(a, g)
+           for a, g in zip(outs["fused"], outs["fused block"])):
+        fail("the decode blocks gave other tokens than the per-step fused "
+             "run")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    _, rrec = rms_case(gen, torch.bfloat16, (FUSED_ROWS, cfg.hidden_size))
+
+    ref = LlamaForCausalLM(llama2_7b_config(), device="cuda")
+    ref.load_state_dict(model.state_dict())
+    vs_a = divergence(ref, [(len(p), f, a) for (p, _), f, a in zip(
+        traffic, outs["fused"], run_a)])
+    vs_small = divergence(ref, [(len(p), f, s) for (p, _), f, s in zip(
+        traffic, outs["fused"], outs["fused small"])])
+    del ref
+    torch.cuda.empty_cache()
+    tokens = sum(n for _, n in traffic)
+    rec = {"phase": "fused", "check": "tokens", "block_equals_per_step": True,
+           "bf16_spread": spread,
+           "fused_vs_run_a_graphed": {"differing_tokens": vs_a[0],
+                                      "tokens": tokens,
+                                      "first_differences": vs_a[1]},
+           "small_pool_vs_fused": {"differing_tokens": vs_small[0],
+                                   "tokens": tokens,
+                                   "first_differences": vs_small[1]},
+           "rms_norm_fused_rows": rrec}
+    emit(rec)
+    over = [r for r in vs_a[1] + vs_small[1] if r["gap"] > spread]
+    if over:
+        fail(f"fused and per-step picks, or small-pool and fused ones, "
              f"differ by more than the bf16 spread {spread}: {over}")
     return counts
 
@@ -2820,8 +3046,9 @@ def main(argv=None):
     serve = phase_serve(args.seed)
     model = serving_model(args.seed)
     batcher, dense_tokens = phase_batcher(args.seed, model)
-    paged = phase_paged(args.seed, model, dense_tokens)
-    del model, dense_tokens
+    paged, spread, run_a = phase_paged(args.seed, model, dense_tokens)
+    fused = phase_fused(args.seed, model, spread, run_a)
+    del model, dense_tokens, run_a
     torch.cuda.empty_cache()
     train, train_profile = phase_train(args.seed)
     packed, _ = phase_train(args.seed, packed=True)
@@ -2857,6 +3084,9 @@ def main(argv=None):
                 m: paged[m][name] for m in ("A eager", "A graphed",
                                             "B graphed", "B plain",
                                             "generate_paged")}
+            # per fused run (the replays' included)
+            k["launches_per_fused_run"] = {m: c[name]
+                                           for m, c in fused.items()}
         if gpt2[name] and train[name]:
             k["launches_per_gpt2_train_step"] = gpt2[name]
         if name == "rms_norm_bwd":

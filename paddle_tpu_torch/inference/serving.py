@@ -16,10 +16,9 @@ The paged batcher keeps one page pool instead: admission and preemption
 move pages, not tensors, and a radix prefix cache can share a prompt's
 pages across requests (``PagedContinuousBatcher``'s docstring).
 
-Not ported yet: the paged batcher's fused admission, K-step decode blocks,
-int8 pages, host and disk tiers with promotion, sessions and speculative
-decode; the tensor-parallel shard group and the gateway's requeue tags on
-the prefill span.
+Not ported yet: the paged batcher's int8 pages, host and disk tiers with
+promotion, sessions and speculative decode; the tensor-parallel shard group
+and the gateway's requeue tags on the prefill span.
 """
 from __future__ import annotations
 
@@ -100,9 +99,8 @@ class _ServingStats:
                            "requests preempted back to the queue")
         self.tokens_c = c("serving_tokens_total", "tokens generated")
         self.steps_c = c("serving_steps_total", "decode steps")
-        # K-step decode blocks are not ported: the series stays at 0, as
-        # the dense batcher's does in the JAX package
-        c("serving_decode_blocks_total", "K-step decode blocks dispatched")
+        self.blocks_c = c("serving_decode_blocks_total",
+                          "K-step decode blocks dispatched")
         self.queue_depth = g("serving_queue_depth",
                              "pending requests right now")
         self.active_slots = g("serving_active_slots",
@@ -127,6 +125,7 @@ class _ServingStats:
         self.occupancy_sum = 0
         self.completed = 0
         self.preempted = 0
+        self.decode_blocks = 0
         self.shed = 0
         self.expired = 0
         self.t0 = _time.perf_counter()
@@ -145,19 +144,21 @@ class _ServingStats:
         if len(req.tokens) == 1 and req.submit_t:
             self.ttft.observe(_time.perf_counter() - req.submit_t)
 
-    def on_step(self):
-        self.steps += 1
-        self.steps_c.inc()
+    def on_step(self, substeps: int = 1):
+        self.steps += substeps
+        self.steps_c.inc(substeps)
 
     def on_occupancy(self, n: int):
         self.occupancy_sum += n
 
-    def on_decode_time(self, dt: float, tokens: int):
+    def on_decode_time(self, dt: float, substeps: int = 1,
+                       tokens: int = 0):
         self.step_seconds.observe(dt)
-        self.token_seconds.observe(dt)
-        # join the dispatch against a registered roofline's serving token
-        # bound (roofline.serving.* gauges; no-op without a model)
-        roofline_attr.observe_serving_step(dt, tokens)
+        self.token_seconds.observe(dt / max(substeps, 1))
+        if tokens:
+            # join the dispatch against a registered roofline's serving
+            # token bound (roofline.serving.* gauges; no-op without a model)
+            roofline_attr.observe_serving_step(dt, tokens)
 
     def on_complete(self):
         self.completed += 1
@@ -166,6 +167,10 @@ class _ServingStats:
     def on_preempt(self):
         self.preempted += 1
         self.preempt_c.inc()
+
+    def on_decode_block(self):
+        self.decode_blocks += 1
+        self.blocks_c.inc()
 
     def on_shed(self):
         self.shed += 1
@@ -195,9 +200,9 @@ class _ServingStats:
             "pending_now": pending,
             "active_now": active,
             "elapsed_s": dt,
-            # int8 caches and K-step decode blocks are not ported
+            # int8 caches are not ported
             "cachekv_clip_rate": 0.0,
-            "decode_blocks": 0,
+            "decode_blocks": self.decode_blocks,
             "requests_shed": self.shed,
             "deadline_expired": self.expired,
         }
@@ -211,6 +216,9 @@ class _BatcherBase:
     base ``step()`` wraps it with deadline/health/chaos policy)."""
 
     _engine = "serving"        # registry label; subclasses override
+    # the paged batcher's in-flight fused admission (its request, slot and
+    # detached block-table row), None when there is none
+    _admitting: Optional[dict] = None
 
     def _init_queues(self, max_queue_depth: Optional[int] = None,
                      default_deadline_s: Optional[float] = None):
@@ -368,14 +376,25 @@ class _BatcherBase:
         gets the capacity back."""
         self._expire_pending()
         now = _time.perf_counter()
+
+        def expired(r: Request) -> bool:
+            return r.deadline_t is not None and now > r.deadline_t
+
         for slot, req in list(self._slot_req.items()):
-            if req.deadline_t is not None and now > req.deadline_t:
+            if expired(req):
                 del self._slot_req[slot]
                 self._release_slot(slot)
                 self._fail(req, DeadlineExceeded(
                     f"request {req.rid} expired after "
                     f"{len(req.tokens)} tokens"))
                 self._tele.on_deadline_expired()
+        adm = self._admitting
+        if adm is not None and expired(adm["req"]):
+            # an in-flight fused admission: its pages back to the pool
+            self._drop_admission()
+            self._fail(adm["req"], DeadlineExceeded(
+                f"request {adm['req'].rid} expired during admission"))
+            self._tele.on_deadline_expired()
 
     def step(self) -> List[int]:
         """Expire deadlines, then run one engine step (subclass
@@ -445,7 +464,8 @@ class _BatcherBase:
         return out
 
     def _has_work(self) -> bool:
-        return bool(self._pending or self._slot_req)
+        return bool(self._pending or self._slot_req
+                     or self._admitting is not None)
 
     def run_until_done(self, max_steps: int = 10000) -> Dict[int, np.ndarray]:
         """Drive until every submitted request completes; returns (and
@@ -483,6 +503,9 @@ class _BatcherBase:
         for req in self._slot_req.values():
             if req.rid == rid:
                 return req
+        if self._admitting is not None \
+                and self._admitting["req"].rid == rid:
+            return self._admitting["req"]
         return self._finished.get(rid)
 
     def failure(self, rid: int) -> Optional[Exception]:
@@ -494,10 +517,10 @@ class _BatcherBase:
         """Withdraw a LIVE request without recording a failure -- the
         caller re-owns it (and may resume it token-exact from
         ``prompt + delivered``). Pending requests leave the queue; active
-        ones release their slot. Returns True when something was
-        withdrawn; False for an unknown rid or a terminal request
-        (finished results stay poppable, failures stay raised by
-        ``pop_result``)."""
+        ones release their slot, and an in-flight fused admission its
+        pages. Returns True when something was withdrawn; False for an
+        unknown rid or a terminal request (finished results stay
+        poppable, failures stay raised by ``pop_result``)."""
         with self._intake:
             for req in list(self._pending):
                 if req.rid == rid:
@@ -509,6 +532,10 @@ class _BatcherBase:
                 self._release_slot(slot)
                 req.slot = None
                 return True
+        if self._admitting is not None \
+                and self._admitting["req"].rid == rid:
+            self._drop_admission()
+            return True
         return False
 
 
@@ -675,7 +702,8 @@ class ContinuousBatcher(_BatcherBase):
             self._last_tok[slot, 0] = tok
             if self._maybe_finish(req, tok):
                 finished.append(req.rid)
-        self._tele.on_decode_time(_time.perf_counter() - t0, n_active)
+        self._tele.on_decode_time(_time.perf_counter() - t0,
+                                  tokens=n_active)
         self._tele.set_gauges(len(self._pending), len(self._slot_req))
         return finished
 
@@ -717,17 +745,33 @@ class PagedContinuousBatcher(_BatcherBase):
     prompt_buckets: the ladder the (suffix) prefill pads onto
     (``perf.buckets`` spec; None keeps exact lengths).
 
-    compile: replay the decode step as a CUDA graph; it needs a model on
-    the card, and ``compile=False`` runs the step eagerly on either device.
-    Prefills and chunks stay eager. do_sample / temperature / top_k /
-    top_p / seed: the host token pick. max_queue_depth: shed with
-    ``Overloaded`` past it. default_deadline_s: the deadline of requests
-    submitted without one.
+    fused_admission (needs ``prefill_chunk``): admission reserves the
+    prompt's pages in a row of its own and streams the prompt one chunk a
+    step through ``paged_fused_step``, beside every decoding slot's token,
+    so decode never pauses for a prefill. The slot's own row stays scratch
+    until the last chunk, and a live decode that needs a page aborts the
+    admission when nothing else can be preempted.
+
+    decode_block=K (greedy only): when no request waits or admits, K decode
+    steps run as one call with the argmax on the device feeding the next
+    step; the host reads back K x B token ids and drops what a slot made
+    past its EOS or budget. A block runs only when every slot's kept rows
+    can be backed without preempting; otherwise the per-step path runs.
+
+    compile: capture as CUDA graphs (``jit.to_static``, the pools donated)
+    and replay the decode step, the fused step, the K-step block and the
+    fixed-width chunk (at most two: the full width and a tail shortened at
+    the capacity); it needs a model on the card, and ``compile=False`` runs
+    them eagerly on either device. Whole-prompt and ladder prefills stay
+    eager: each length or rung would be a graph of its own. do_sample /
+    temperature / top_k / top_p / seed: the host token pick.
+    max_queue_depth: shed with ``Overloaded`` past it. default_deadline_s:
+    the deadline of requests submitted without one.
 
     Not ported yet (ROADMAP, queue 1, item 1), each raising
     ``NotImplementedError`` when set: ``cache_quant``, ``kv_quant``,
-    ``tier_quant``, ``fused_admission``, ``decode_block``,
-    ``draft_model``, ``host_kv_gib``, ``disk_kv_dir``, ``session_store``.
+    ``tier_quant``, ``draft_model``, ``host_kv_gib``, ``disk_kv_dir``,
+    ``session_store``.
     """
 
     _engine = "paged"
@@ -753,10 +797,53 @@ class PagedContinuousBatcher(_BatcherBase):
                  session_store=None,
                  prompt_buckets=None,
                  draft_model=None):
+        # the JAX package's guards, in its order, before the options that
+        # wait: a combination it refuses raises its ValueError here too
+        if policy not in ("reserve", "ondemand"):
+            raise ValueError(f"unknown policy {policy!r}")
+        if prefix_cache and cache_quant:
+            raise ValueError(
+                "prefix_cache shares pages across requests; dynamic "
+                "cachekv quant scales are per-request, so a shared page "
+                "would replay with the wrong scales — use static "
+                "calibration or disable one")
+        if prefix_cache and fused_admission:
+            raise ValueError(
+                "prefix_cache is not supported with fused_admission "
+                "(the fused chunk streams the FULL prompt at a fixed "
+                "offset grid; a cached-prefix suffix start would need a "
+                "second executable per offset)")
+        if decode_block is not None:
+            if decode_block < 2:
+                raise ValueError("decode_block must be >= 2 (1 is the "
+                                 "plain per-step path)")
+            if do_sample:
+                # the in-block feedback is an on-device argmax; sampled
+                # selection stays on the host path
+                raise ValueError("decode_block requires greedy decoding "
+                                 "(do_sample=False)")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        if fused_admission and not prefill_chunk:
+            raise ValueError("fused_admission needs prefill_chunk (the "
+                             "chunk width of the fused executable)")
+        if fused_admission and cache_quant:
+            raise ValueError("fused_admission + dynamic cachekv quant is "
+                             "not supported; use static calibration")
+        if prefill_chunk is not None and prefill_chunk > s_max:
+            raise ValueError(f"prefill_chunk={prefill_chunk} exceeds "
+                             f"s_max={s_max}")
+        if fused_admission:
+            cap = -(-s_max // block_size) * block_size
+            if cap % prefill_chunk:
+                # the fused chunk is fixed-width; a tail shortened at the
+                # capacity would be a second graph, and one padded past it
+                # would write the sequence's last real page
+                raise ValueError(
+                    f"fused_admission needs the slot capacity ({cap}) to "
+                    f"be a multiple of prefill_chunk ({prefill_chunk})")
         waiting = {"cache_quant": cache_quant, "kv_quant": kv_quant,
-                   "tier_quant": tier_quant,
-                   "fused_admission": fused_admission or None,
-                   "decode_block": decode_block, "draft_model": draft_model,
+                   "tier_quant": tier_quant, "draft_model": draft_model,
                    "host_kv_gib": host_kv_gib, "disk_kv_dir": disk_kv_dir,
                    "session_store": session_store}
         if prefix_cache and float(_os.environ.get("PADDLE_KV_HOST_GIB", "0")
@@ -767,13 +854,6 @@ class PagedContinuousBatcher(_BatcherBase):
                 raise NotImplementedError(
                     f"PagedContinuousBatcher: {name}={value!r} is not "
                     "ported yet (ROADMAP, queue 1, item 1)")
-        if policy not in ("reserve", "ondemand"):
-            raise ValueError(f"unknown policy {policy!r}")
-        if prefill_chunk is not None and prefill_chunk < 1:
-            raise ValueError("prefill_chunk must be >= 1")
-        if prefill_chunk is not None and prefill_chunk > s_max:
-            raise ValueError(f"prefill_chunk={prefill_chunk} exceeds "
-                             f"s_max={s_max}")
         device = next(model.parameters()).device
         if compile and device.type != "cuda":
             raise ValueError(
@@ -794,6 +874,8 @@ class PagedContinuousBatcher(_BatcherBase):
         self.eos_id = eos_id
         self.policy = policy
         self.prefill_chunk = prefill_chunk
+        self.fused_admission = fused_admission
+        self.decode_block = decode_block
         self._do_sample = do_sample
         self._temperature = temperature
         self._top_k = top_k
@@ -846,14 +928,44 @@ class PagedContinuousBatcher(_BatcherBase):
             self._to_device(self._bt), max_batch, 0, block_size,
             self.blocks_per_seq)
         self._tok_dev = self._to_device(self._last_tok)
-        if compile:
-            # donate the state (argument 1): the graph appends into the
-            # page pool in place and reads the host's tables from the
-            # state's own tensors
-            self._step_fn = to_static(model.paged_decode_step,
-                                      donate_args=(1,))
-        else:
-            self._step_fn = model.paged_decode_step
+
+        def static(fn, donate):
+            return to_static(fn, donate_args=(donate,)) if compile else fn
+
+        # donate the state (argument 1): the graph appends into the page
+        # pool in place and reads the host's tables from the state's own
+        # tensors
+        self._step_fn = static(model.paged_decode_step, 1)
+        if prefill_chunk is not None:
+            # one fixed-width append call serves every prompt length; the
+            # pools donated (argument 1), as the decode step's
+            def _chunk(ids, layers, bt_row, dec, at):
+                return model.paged_prefill_into(
+                    ids, layers, bt_row, block_size, dec_base=dec,
+                    logits_at=at)
+            self._chunk_fn = static(_chunk, 1)
+        if fused_admission:
+            # the admission chunk's inputs: device tensors the host
+            # overwrites before each fused call (the idle values when no
+            # admission is in flight)
+            self._idle_chunk = (
+                np.zeros((prefill_chunk,), np.int64),
+                np.full((1, self.blocks_per_seq), self._scratch, np.int32),
+                np.zeros((1,), np.int32), np.zeros((1,), np.int32))
+            self._chunk_dev = tuple(self._to_device(a)
+                                    for a in self._idle_chunk)
+            self._fused_fn = static(model.paged_fused_step, 5)
+        if decode_block:
+            # K decode steps as one call, the argmax on the device feeding
+            # the next step: one dispatch and one [K, B] read-back a block
+            def _block_body(tok, state, _k=decode_block):
+                toks = []
+                for _ in range(_k):
+                    logits, state = model.paged_decode_step(tok, state)
+                    tok = torch.argmax(logits, dim=-1)
+                    toks.append(tok)
+                return torch.stack(toks), state
+            self._block_fn = static(_block_body, 1)
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self._device)
@@ -866,12 +978,12 @@ class PagedContinuousBatcher(_BatcherBase):
     def _pages_for(self, n_rows: int) -> int:
         return -(-n_rows // self.block_size)
 
-    def _alloc_pages(self, slot: int, upto_row: int) -> bool:
-        """Grow a slot's block-table row so rows [0, upto_row) are backed. A
-        dry free list LRU-evicts idle prefix-cache chains first (cached but
+    def _alloc_pages_row(self, row: np.ndarray, upto_row: int) -> bool:
+        """Grow a block-table row (a slot's row of ``_bt`` or an
+        admission's detached one) so rows [0, upto_row) are backed. A dry
+        free list LRU-evicts idle prefix-cache chains first (cached but
         idle pages are reclaimable capacity, not occupancy). Returns False
         (allocating nothing) if even that cannot cover it."""
-        row = self._bt[slot]
         need_blocks = self._pages_for(upto_row)
         have = int(np.sum(row != self._scratch))
         grow = need_blocks - have
@@ -884,6 +996,17 @@ class PagedContinuousBatcher(_BatcherBase):
         for b in range(have, need_blocks):
             row[b] = self._free_pages.pop()
         return True
+
+    def _alloc_pages(self, slot: int, upto_row: int) -> bool:
+        return self._alloc_pages_row(self._bt[slot], upto_row)
+
+    def _available_pages(self) -> int:
+        """Pages an allocation could obtain right now: the free list and
+        what the prefix cache would give up to eviction."""
+        n = len(self._free_pages)
+        if self.prefix_cache is not None:
+            n += self.prefix_cache.evictable_pages()
+        return n
 
     def _evict_cache_pages(self, n: int) -> List[int]:
         """Reclaim up to n pages from the prefix cache into the free
@@ -928,6 +1051,9 @@ class PagedContinuousBatcher(_BatcherBase):
         (0 whenever it returns)."""
         free_set = set(self._free_pages)
         used = {int(b) for b in self._bt.reshape(-1) if b != self._scratch}
+        if self._admitting is not None:
+            used.update(int(b) for b in self._admitting["row"]
+                        if b != self._scratch)
         cache_pages = set()
         if self.prefix_cache is not None:
             cp = self.prefix_cache.pages()
@@ -1025,9 +1151,7 @@ class PagedContinuousBatcher(_BatcherBase):
             m_rows = len(matched) * self.block_size
             ids_np, L, padded_len, upto = self._admission_plan(req, m_rows)
             need = self._pages_for(upto) - len(matched)
-            if need > len(self._free_pages) + (
-                    self.prefix_cache.evictable_pages()
-                    if self.prefix_cache is not None else 0):
+            if need > self._available_pages():
                 if matched:
                     self.prefix_cache.unpin(matched)
                 break
@@ -1097,10 +1221,12 @@ class PagedContinuousBatcher(_BatcherBase):
 
     def _prefill_chunked(self, ids_np, bt_row, dec0: int = 0):
         """Feed ``ids_np`` through fixed-width append chunks after ``dec0``
-        rows already in the slot's pages (a cached prefix). The tail chunk
-        is zero-padded, and shortened at the slot's capacity; pad rows land
-        past the true timeline and decode overwrites them before any read
-        reaches them. Returns the last real position's logits [1, V]."""
+        rows already in the slot's pages (a cached prefix), one
+        ``_chunk_fn`` call (a graph replay with ``compile=True``) a chunk.
+        The tail chunk is zero-padded, and shortened at the slot's
+        capacity; pad rows land past the true timeline and decode
+        overwrites them before any read reaches them. Returns the last real
+        position's logits [1, V]."""
         C = self.prefill_chunk
         L = len(ids_np)
         cap = self.blocks_per_seq * self.block_size
@@ -1112,11 +1238,13 @@ class PagedContinuousBatcher(_BatcherBase):
         while dec < padded_len:
             w = min(C, padded_len - dec)     # the tail shortens at capacity
             has_last = 0 <= (L - 1) - dec < w
-            lg, _ = self.model.paged_prefill_into(
-                self._to_device(padded[:, dec:dec + w]),
-                self._state["layers"], bt_row, self.block_size,
-                dec_base=self._to_device(np.array([dec0 + dec], np.int32)),
-                logits_at=self._to_device(np.array(
+            # a copy, so the ids keep one layout (a captured graph keys
+            # its inputs' strides) whatever the prompt's length
+            lg, _ = self._chunk_fn(
+                self._to_device(padded[:, dec:dec + w].copy()),
+                self._state["layers"], bt_row,
+                self._to_device(np.array([dec0 + dec], np.int32)),
+                self._to_device(np.array(
                     [(L - 1) - dec if has_last else 0], np.int32)))
             if has_last:
                 logits = lg
@@ -1148,12 +1276,18 @@ class PagedContinuousBatcher(_BatcherBase):
 
     def _grow_for_step(self):
         """ondemand: every active slot is about to write kv row dec[slot];
-        back it with a page, preempting if the pool is dry."""
+        back it with a page, preempting (other slots, then an in-flight
+        fused admission) if the pool is dry."""
         for slot in list(self._admit_order):
             if slot not in self._slot_req:
                 continue
             while not self._alloc_pages(slot, int(self._dec[slot]) + 1):
                 if self._preempt_latest(protect=slot):
+                    continue
+                if self._admitting is not None:
+                    # the admission's detached row holds pages too: abort
+                    # it rather than fail a live decode
+                    self._abort_admission()
                     continue
                 raise RuntimeError(
                     f"page pool exhausted: slot {slot} needs a page at "
@@ -1194,8 +1328,16 @@ class PagedContinuousBatcher(_BatcherBase):
                 finished.append(req.rid)
 
     def _decode_tail(self, finished: List[int]):
-        """One decode step for every slot (parked ones into scratch)."""
+        """One decode step for every slot (parked ones into scratch), or a
+        K-step block when nothing waits or admits and the block's rows can
+        be backed. The plain engine's step and the fused engine's idle
+        one."""
         if not self._slot_req:
+            return
+        if self.decode_block and not self._pending \
+                and self._admitting is None \
+                and self._block_backed(self.decode_block):
+            self._decode_block_tail(finished)
             return
         self._step_prologue()
         n_active = len(self._slot_req)
@@ -1206,11 +1348,203 @@ class PagedContinuousBatcher(_BatcherBase):
             # tables, so the returned state is not kept
             logits, _ = self._step_fn(self._tok_dev, self._state)
         self._advance_decoders(logits, finished)
-        self._tele.on_decode_time(_time.perf_counter() - t0, n_active)
+        self._tele.on_decode_time(_time.perf_counter() - t0,
+                                  tokens=n_active)
+
+    # -- K-step decode blocks -----------------------------------------------
+    def _block_backed(self, K: int) -> bool:
+        """Whether a K-step block may run: for every active slot, dec + K
+        stays inside the slot's capacity and the rows it keeps (up to its
+        remaining budget) are backed by pages. Rows written past the budget
+        land in the slot's own pages or in scratch (unbacked table entries
+        stay scratch). On demand, every slot is probed before any page
+        moves, and a dry pool declines (no preemption: the per-step path
+        keeps that policy), so a declined block leaves no slot holding
+        pages it will not use."""
+        cap = self.blocks_per_seq * self.block_size
+        plan = []                      # (slot, upto) to allocate on a pass
+        need = 0
+        for slot in list(self._admit_order):
+            req = self._slot_req.get(slot)
+            if req is None:
+                continue
+            if int(self._dec[slot]) + K > cap:
+                return False
+            keep = min(K, req.max_new_tokens - len(req.tokens))
+            if keep <= 0:
+                continue
+            upto = int(self._dec[slot]) + keep
+            have = int(np.sum(self._bt[slot] != self._scratch))
+            need += max(0, self._pages_for(upto) - have)
+            plan.append((slot, upto))
+        if self.policy != "ondemand":
+            return True                # reserve backed everything up front
+        if need > self._available_pages():
+            return False
+        for slot, upto in plan:
+            if not self._alloc_pages(slot, upto):   # pragma: no cover
+                raise RuntimeError("page accounting bug: block probe "
+                                   "passed but allocation failed")
+        return True
+
+    def _decode_block_tail(self, finished: List[int]):
+        """One K-step block, then its K x B tokens consumed on the host
+        sub-step by sub-step, finishing and evicting as the per-step path
+        would. A slot that finishes mid-block decoded garbage for the rest
+        of the block: those tokens are dropped here, and their K/V rows
+        went to its own (about to be freed) pages or to scratch."""
+        K = self.decode_block
+        self._tele.on_step(K)
+        self._tele.on_decode_block()
+        self._tele.set_gauges(len(self._pending), len(self._slot_req))
+        self._sync_tables()
+        n_active = len(self._slot_req)
+        t0 = _time.perf_counter()
+        self._tok_dev.copy_(torch.from_numpy(self._last_tok))
+        with torch.no_grad():
+            toks, _ = self._block_fn(self._tok_dev, self._state)
+        toks_np = toks.cpu().numpy()                        # [K, B]
+        self._tele.on_decode_time(_time.perf_counter() - t0, K,
+                                  tokens=K * n_active)
+        # survivors consumed all K rows; evicted slots' timelines reset at
+        # their next admission
+        self._dec += K * self._slot_active_mask().astype(np.int32)
+        for k in range(K):
+            # occupancy at each sub-step's entry (after earlier
+            # evictions), as _step_prologue counts it
+            self._tele.on_occupancy(len(self._slot_req))
+            for slot, req in list(self._slot_req.items()):
+                tok = int(toks_np[k, slot])
+                req.tokens.append(tok)
+                self._tele.on_token(req)
+                self._last_tok[slot] = tok
+                if self._maybe_finish(req, tok):
+                    finished.append(req.rid)
+
+    # -- fused admission ----------------------------------------------------
+    def _start_admission(self) -> bool:
+        """Reserve a slot and the padded prompt's pages for the queue's
+        head; its prompt then streams through the fused step one chunk a
+        step while the other slots keep decoding."""
+        if self._admitting is not None or not self._pending \
+                or not self._free_slots:
+            return False
+        req = self._pending[0]
+        ids_np, L, padded_len, upto = self._admission_plan(req)
+        if self._pages_for(upto) > len(self._free_pages):
+            return False
+        with self._intake:
+            self._pending.pop(0)
+        slot = self._free_slots.pop(0)
+        row = np.full((self.blocks_per_seq,), self._scratch, np.int32)
+        if not self._alloc_pages_row(row, upto):
+            raise RuntimeError("page accounting bug: admission gate "
+                               "passed but allocation failed")
+        padded = np.zeros((padded_len,), np.int64)
+        padded[:L] = ids_np
+        # the slot's own row stays scratch until the admission completes,
+        # so its garbage decode writes land in scratch, not in the rows the
+        # chunks are filling
+        self._admitting = {"req": req, "slot": slot, "row": row,
+                           "ids": padded, "L": L, "offset": 0}
+        self._trace_admit_begin(req)
+        self._trace_prefill_begin(req)
+        return True
+
+    def _drop_admission(self):
+        """Give the in-flight admission's pages and slot back."""
+        adm = self._admitting
+        self._release_row(adm["row"])
+        self._free_slots.append(adm["slot"])
+        self._admitting = None
+
+    def _abort_admission(self):
+        """Preempt the in-flight admission: its pages back to the pool, the
+        request to the front of the queue (it restarts from its first
+        chunk; the recompute is exact, as a preempted slot's is)."""
+        req = self._admitting["req"]
+        self._drop_admission()
+        with self._intake:
+            self._pending.insert(0, req)
+        self._trace_close(req, preempted=1)
+        self._tele.on_preempt()
+        self.audit_pages()
+
+    def _fused_chunk_inputs(self):
+        """The admission chunk's ids [C], block-table row [1, bps], rows
+        already written [1] and the last real token's place in the chunk
+        [1] (0 when the chunk does not hold it), as numpy arrays; the idle
+        values when no admission is in flight."""
+        adm = self._admitting
+        if adm is None:
+            return self._idle_chunk
+        C = self.prefill_chunk
+        o = adm["offset"]
+        at = adm["L"] - 1 - o
+        return (adm["ids"][o:o + C],       # always full: capacity % C == 0
+                adm["row"][None, :], np.array([o], np.int32),
+                np.array([at if 0 <= at < C else 0], np.int32))
+
+    def _finish_admission(self, chunk_logits, finished: List[int]):
+        """Advance the in-flight admission by one chunk; after its last
+        chunk, install its block-table row and make it a decoding slot."""
+        adm = self._admitting
+        if adm is None:
+            return
+        C = self.prefill_chunk
+        o, L = adm["offset"], adm["L"]
+        adm["offset"] = o + C
+        if not o <= L - 1 < o + C:
+            return
+        req, slot = adm["req"], adm["slot"]
+        self._trace_prefill_end(req, prompt_tokens=L, fused=1)
+        tok = int(self._pick(chunk_logits.float().cpu().numpy())[0])
+        self._bt[slot] = adm["row"]
+        self._dec[slot] = L
+        self._last_tok[slot] = tok
+        req.slot = slot
+        req.tokens.append(tok)
+        self._tele.on_admit()
+        self._tele.on_token(req)
+        self._slot_req[slot] = req
+        self._admit_order.append(slot)
+        self._admitting = None
+        self._trace_admit_end(req, slot)
+        if self._maybe_finish(req, tok):
+            finished.append(req.rid)
+
+    def _step_fused(self) -> List[int]:
+        """One fused call: every decoding slot advances and the in-flight
+        admission streams its next chunk. With no admission in flight the
+        decode step (or a block) runs instead: an idle chunk would still
+        take C tokens through the model for nothing."""
+        finished: List[int] = []
+        self._start_admission()
+        if self._admitting is None:
+            self._decode_tail(finished)
+            return finished
+        self._step_prologue()          # may abort the admission
+        n_active = len(self._slot_req)
+        t0 = _time.perf_counter()
+        self._tok_dev.copy_(torch.from_numpy(self._last_tok))
+        for dev, host in zip(self._chunk_dev, self._fused_chunk_inputs()):
+            dev.copy_(torch.from_numpy(host))
+        with torch.no_grad():
+            dec_logits, chunk_logits, _ = self._fused_fn(
+                self._tok_dev, *self._chunk_dev, self._state)
+        self._advance_decoders(dec_logits, finished)
+        self._finish_admission(chunk_logits, finished)
+        self._tele.on_decode_time(_time.perf_counter() - t0,
+                                  tokens=n_active)
+        return finished
 
     def _step_impl(self) -> List[int]:
-        """Admit, grow pages (ondemand), decode one token per active slot,
-        evict finished. Returns rids finishing during this call."""
+        """Admit, grow pages (ondemand), decode one token per active slot
+        (or a K-step block), evict finished. With fused admission, one
+        fused call admits a chunk and decodes. Returns rids finishing
+        during this call."""
+        if self.fused_admission:
+            return self._step_fused()
         finished = self._admit()
         self._decode_tail(finished)
         return finished

@@ -15,11 +15,11 @@ spec: with a mask the attention runs non-causal, as in the JAX package.
 ``prefill(n_valid=)`` and ``decode_step`` are what the dense serving
 batcher (``inference/serving.py``) drives; the paged route
 (``paged_alloc``, ``paged_prefill_into``, ``paged_prefill``,
-``paged_decode_step``, ``generate_paged``) is what the paged batcher drives,
-its attention ``incubate.nn.functional.block_gqa_attention`` over a page
-pool. Not ported yet: MoE, context parallelism, the fused paged step,
-speculative decode, beam search, sampling in ``generate`` and int8
-caches. ``scan_layers`` is accepted and
+``paged_decode_step``, ``paged_fused_step``, ``generate_paged``) is what
+the paged batcher drives, its attention
+``incubate.nn.functional.block_gqa_attention`` over a page pool. Not ported
+yet: MoE, context parallelism, speculative decode, beam search, sampling in
+``generate`` and int8 caches. ``scan_layers`` is accepted and
 runs the unrolled stack (in the JAX package it is a compile-time device
 with the unrolled loop's numerics); selective recompute recomputes whole
 layers, as the JAX package's unrolled path does.
@@ -522,6 +522,75 @@ class LlamaForCausalLM(nn.Module):
             new_layers.append((kc, vc))
         logits = self._lm_logits(model.norm(hidden)[:, 0])  # [B, V]
         return logits, dict(state, layers=new_layers, dec_lens=t + 1)
+
+    @torch.no_grad()
+    def paged_fused_step(self, tok, chunk_ids, chunk_bt, chunk_dec,
+                         chunk_at, state):
+        """One packed call that advances every decode slot and one
+        admission chunk: B + 1 sequences, B + C tokens, so decode never
+        pauses while a prompt prefills.
+
+        tok ``[B]``: this step's decode tokens (parked slots carry garbage).
+        chunk_ids ``[C]``: the admission chunk (zeros when idle). chunk_bt
+        ``[1, blocks_per_seq]``: the admitting sequence's block-table row
+        (all scratch when idle). chunk_dec ``[1]``: rows earlier chunks
+        wrote. chunk_at ``[1]``: the place of the last real token in this
+        chunk, whose logits are returned. Everything stays on the device
+        and the pools are written in place, so one CUDA graph serves every
+        occupancy and every prompt length. Returns ``(decode_logits [B, V],
+        chunk_logits [1, V], new_state)``, the state's ``dec_lens + 1``.
+
+        The norms and products run over all B + C rows at once; the
+        attention runs twice a layer, the B decode rows as one group and
+        the chunk alone (each sequence attends only to its own pages, so
+        this is the JAX package's one packed call, without the uneven
+        packing that would run it a sequence at a time)."""
+        self._check_paged_servable()
+        if state.get("cache_scales") is not None:
+            # the chunk sequence (row B) has no per-slot scale row; the
+            # batcher refuses this combination up front
+            raise NotImplementedError(
+                "fused admission + dynamic cachekv quant: use static "
+                "calibration (calibrate_cachekv_int8)")
+        cfg = self.config
+        b, c = tok.shape[0], chunk_ids.shape[0]
+        h, kvh, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                     cfg.head_dim)
+        t = state["dec_lens"]
+        dev = tok.device
+        chunk_enc = torch.zeros(1, dtype=torch.int32, device=dev)
+        chunk_this = torch.full((1,), c, dtype=torch.int32, device=dev)
+        model = self.model
+        hidden = model.embed_tokens(torch.cat([tok.reshape(b),
+                                               chunk_ids.reshape(c)]))
+        new_layers = []
+        for layer, (kc, vc) in zip(model.layers, state["layers"]):
+            attn = layer.self_attn
+            x = layer.input_layernorm(hidden)                 # [B + C, E]
+            q = attn.q_proj(x).reshape(b + c, h, d)
+            k = attn.k_proj(x).reshape(b + c, kvh, d)
+            v = attn.v_proj(x).reshape(b + c, kvh, d)
+            out_dec, kc, vc = block_gqa_attention(
+                q[:b], k[:b], v[:b], kc, vc, state["zeros_b"], t,
+                state["ones_b"], state["cu_b"], state["block_tables"],
+                block_size=state["block_size"], rope_cos=model._cos,
+                rope_sin=model._sin)
+            out_chunk, kc, vc = block_gqa_attention(
+                q[b:], k[b:], v[b:], kc, vc, chunk_enc, chunk_dec,
+                chunk_this, (0, c), chunk_bt, block_size=state["block_size"],
+                rope_cos=model._cos, rope_sin=model._sin)
+            hidden = hidden + attn.o_proj(torch.cat([out_dec, out_chunk]))
+            hidden = hidden + layer.mlp(
+                layer.post_attention_layernorm(hidden))
+            new_layers.append((kc, vc))
+        hidden = model.norm(hidden)
+        dec_logits = self._lm_logits(hidden[:b])              # [B, V]
+        # the chunk's row picked on the device (the JAX package takes a
+        # one-hot product, which is exact)
+        chunk_logits = self._lm_logits(
+            hidden[b:].index_select(0, chunk_at.reshape(1).long()))
+        return (dec_logits, chunk_logits,
+                dict(state, layers=new_layers, dec_lens=t + 1))
 
     @torch.no_grad()
     def generate_paged(self, input_ids, max_new_tokens, block_size=64,

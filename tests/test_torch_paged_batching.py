@@ -453,8 +453,7 @@ def test_compile_on_a_cpu_model_raises(models):
 
 @pytest.mark.parametrize("kw", [
     dict(cache_quant="dynamic_int8"), dict(kv_quant="int8"),
-    dict(tier_quant="int8"), dict(fused_admission=True),
-    dict(decode_block=4), dict(draft_model=object()),
+    dict(tier_quant="int8"), dict(draft_model=object()),
     dict(host_kv_gib=1.0), dict(disk_kv_dir="kv"),
     dict(session_store="sessions")], ids=lambda kw: next(iter(kw)))
 def test_options_that_wait_raise(models, kw):
