@@ -34,7 +34,9 @@ Phases, each printing JSON lines (any failure exits non-zero):
    its traffic (64-1024), timed at [1, 512, 32, 128], and the RMSNorm
    forward timed at its decode rows [8, 1, 4096] and at the paged
    batcher's fused step's [72, 4096] (8 decode rows and a 64-token
-   chunk). The
+   chunk). GPT-2 serving's shapes: the forward at [8, 256, 12, 64]
+   (generate's prefill) and [1, 256 | 512, 12, 64] (the dense batcher's
+   admissions), bf16 causal, checked and timed. The
    flash kernels' dropout builds: cases against the plain versions with
    the same seed (bf16 and float32, causal or not, 12:12 and 32:8 heads,
    s 512, 300 and 2048, d 64 and 128, with and without a float32 mask), a
@@ -121,6 +123,26 @@ Phases, each printing JSON lines (any failure exits non-zero):
    within the paged phase's bf16 spread. Per run: steps, fused steps,
    blocks, tokens/s, step ms, TTFT, aborts, peak memory; the fused step's
    wall and device ms, idle share, and device ms by part.
+4e. gpt2_serve: benchmarks/bench_decode.py's serving cell, GPT-2
+   124M-class (vocab 32000, 12 x 768, 12 heads of 64; bf16, random
+   weights from --seed, eval mode): generate (8 x 256 prompt tokens, s_max
+   512, 32 new) and its decode step captured as a CUDA graph (4 warm and
+   32 timed steps, kv_cache_compiled_tokens_per_s); then bench_decode's
+   drive (a warm-up request, then 6 requests of 239-285 prompt tokens and
+   32 new, all up front; 3 measured windows) through the dense
+   ContinuousBatcher eager and graphed and the PagedContinuousBatcher
+   (block 64, 64-token chunks, on demand) graphed, with fused admission,
+   and with fused admission and decode_block=8, 8 slots and s_max 512
+   each. Checks: 6 requests completed a window; one capture of each
+   captured function a run; graphed dense tokens equal eager ones, block
+   tokens the fused run's, and paged and fused picks that leave the dense
+   run's lie within twice the run's bf16 spread against a float32 copy;
+   no page leaks; the flash forward launched 12 times an admission and by
+   generate, its profile the bf16 wgmma build at d 64 without dropout; no
+   dense-route warning. Per run: tokens/s, slot utilization, steps, fused
+   steps, blocks, TTFT, peak memory, captures and replays; a graphed paged
+   step's and a fused step's device ms by part; all profiles after the
+   timings, then the block run again.
 5. train: Llama-2-7B width at 8 of its 32 layers trains 5 steps of
    4 x 2048 tokens (AdamW, amp.decorate O2 bf16, recompute, TrainStep);
    the launch counts of one step prove the path ran every kernel, and its
@@ -659,6 +681,14 @@ def phase_kernels(seed):
         (q, k, v), frec = flash_case(gen, bf16, True, 32, 32, s, 128, b=1)
     flash["batcher_admission_shape"] = flash_timing(q, k, v, frec)
     del q, k, v
+    # GPT-2 serving (bench_decode's cell): generate's prefill of 8 x 256
+    # and the dense batcher's admissions at its 256 and 512 rungs, 12 heads
+    # of 64
+    flash["gpt2_serving_shapes"] = []
+    for b, s in ((GPT2_BATCH, GPT2_CTX), (1, 256), (1, 512)):
+        (q, k, v), frec = flash_case(gen, bf16, True, 12, 12, s, 64, b=b)
+        flash["gpt2_serving_shapes"].append(flash_timing(q, k, v, frec))
+        del q, k, v
 
     rms = None
     for shape, key in (((4 * 512, 4096), None),
@@ -2030,20 +2060,50 @@ def paged_run(model, traffic, config, compile):
     return [outs[r] for r in rids], report, b
 
 
-def paged_step_split(b, reps=20, chunk=0):
+def layer_parts(model):
+    """One layer's pieces for paged_step_split, for either family: (its
+    weight products over x [rows, E] and wide [rows, intermediate], one
+    norm over x, the LM head, the layer count, heads, KV heads and head
+    width)."""
+    cfg = model.config
+    if hasattr(model, "transformer"):                  # GPT-2
+        block = model.transformer.h[0]
+        attn, mlp = block.attn, block.mlp
+
+        def products(x, wide):
+            for lin in (attn.c_attn, attn.c_proj, mlp.c_fc):
+                lin(x)
+            mlp.c_proj(wide)
+        return (products, block.ln_1, model._logits,
+                cfg.num_hidden_layers, cfg.num_attention_heads,
+                cfg.num_attention_heads, cfg.head_dim)
+    layer = model.model.layers[0]
+    attn, mlp = layer.self_attn, layer.mlp
+
+    def products(x, wide):
+        for lin in (attn.q_proj, attn.k_proj, attn.v_proj, attn.o_proj,
+                    mlp.gate_proj, mlp.up_proj):
+            lin(x)
+        mlp.down_proj(wide)
+    return (products, layer.input_layernorm, model._lm_logits,
+            cfg.num_hidden_layers, cfg.num_attention_heads,
+            cfg.num_key_value_heads, cfg.head_dim)
+
+
+def paged_step_split(b, reps=20, chunk=0, chunk_at=448):
     """Device ms of one decode step's parts at the batcher's state (its page
     pool, block table and timelines), each timed alone with CUDA events
     (median of `reps`) and multiplied by the step's count of it: the
     timeline gather and float32 cast of K and V, the attention over them
     (scores, mask, softmax, P V), the weight products (7 a layer and the
-    LM head) and the 65 norms. With `chunk` C, the fused step's parts: the
-    products and norms over B + C rows, one more timeline gathered (the
-    admission's) and its C tokens attended over it."""
+    LM head for Llama, 4 for GPT-2) and the 2L + 1 norms. With `chunk` C,
+    the fused step's parts: the products and norms over B + C rows, one
+    more timeline gathered (the admission's) and its C tokens attended over
+    it at rows `chunk_at` onwards."""
     from paddle_tpu_torch.incubate.nn.functional import decode_attention
     model, cfg = b.model, b.model.config
-    layers, bsz = cfg.num_hidden_layers, b.max_batch
-    h, kvh, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                 cfg.head_dim)
+    products, norm, head, layers, h, kvh, d = layer_parts(model)
+    bsz = b.max_batch
     kc, vc = b._state["layers"][0]
     b._sync_tables()
     bt = b._state["block_tables"].long()
@@ -2056,8 +2116,6 @@ def paged_step_split(b, reps=20, chunk=0):
                     dtype=kc.dtype)
     gk = decode_attention._gather_paged(kc, bt)
     gv = decode_attention._gather_paged(vc, bt)
-    layer = model.model.layers[0]
-    attn, mlp = layer.self_attn, layer.mlp
 
     def events(fn):
         fn()
@@ -2079,12 +2137,6 @@ def paged_step_split(b, reps=20, chunk=0):
     wide = torch.zeros(rows, cfg.intermediate_size, device="cuda",
                        dtype=x.dtype)
 
-    def products():
-        for lin in (attn.q_proj, attn.k_proj, attn.v_proj, attn.o_proj,
-                    mlp.gate_proj, mlp.up_proj):
-            lin(x)
-        mlp.down_proj(wide)
-
     def gather(table):
         return (decode_attention._gather_paged(kc, table),
                 decode_attention._gather_paged(vc, table))
@@ -2095,19 +2147,19 @@ def paged_step_split(b, reps=20, chunk=0):
             "attention": layers * events(lambda: decode_attention._attend(
                 q, gk, gv, dec[:, None], dec + 1)),
             # the LM head over the decode rows (and the chunk's one row)
-            "weight_products": layers * events(products) + events(
-                lambda: [model._lm_logits(x[:n]) for n in (bsz, 1)[
-                    :1 + bool(chunk)]]),
-            "norms": (2 * layers + 1) * events(
-                lambda: layer.input_layernorm(x)),
+            "weight_products": layers * events(lambda: products(x, wide))
+            + events(lambda: [head(x[:n]) for n in (bsz, 1)[
+                :1 + bool(chunk)]]),
+            "norms": (2 * layers + 1) * events(lambda: norm(x)),
         }
         if chunk:
             # the admission's timeline (any table row: each gathers all
-            # its pages) and its chunk, in the middle of a 512-token prompt
+            # its pages) and its chunk, in the middle of a prompt
             qc = torch.randn(1, chunk, h, d, generator=gen, device="cuda",
                              dtype=kc.dtype)
             gkc, gvc = gather(bt[:1])
-            pos = torch.arange(448, 448 + chunk, device="cuda")[None]
+            pos = torch.arange(chunk_at, chunk_at + chunk,
+                               device="cuda")[None]
             split["gather_and_cast"] += layers * events(
                 lambda: gather(bt[:1]))
             split["attention"] += layers * events(
@@ -2199,9 +2251,13 @@ def divergence(ref, pairs):
                 continue
             j = n + int(diff[0])
             row = ref(torch.from_numpy(a[None, :j]).to(dev))[0, -1].float()
+            scale = row.abs().max()
             firsts.append({"i": i, "at": j - n, "new": len(a) - n,
                            "gap": float((row[int(a[j])] - row[int(b[j])])
-                                        .abs() / row.abs().max())})
+                                        .abs() / scale),
+                           # each pick below the float32 top
+                           "below_top": [float((row.max() - row[int(x[j])])
+                                               / scale) for x in (a, b)]})
     return differing, firsts
 
 
@@ -2410,7 +2466,8 @@ def fused_profile(b, prompt=512, short=64, new=64):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / half
     steps = profile_one(b.step, calls=half)
-    split = paged_step_split(b, chunk=b.prefill_chunk)
+    split = paged_step_split(b, chunk=b.prefill_chunk,
+                             chunk_at=prompt - b.prefill_chunk)
     for rid in live:
         b.abort(rid)
     b.audit_pages()
@@ -2532,6 +2589,463 @@ def phase_fused(seed, model, spread, run_a):
     if over:
         fail(f"fused and per-step picks, or small-pool and fused ones, "
              f"differ by more than the bf16 spread {spread}: {over}")
+    return counts
+
+
+# -- phase 4e ----------------------------------------------------------------
+
+# benchmarks/bench_decode.py:84-96's TPU configuration (GPT-2 124M-class at
+# vocab 32000), served in bf16 (the bench leaves the config's float32):
+# batch 8, 256-token context, s_max 512, 32 new tokens
+GPT2_SERVE_CFG = dict(vocab_size=32000, hidden_size=768, num_hidden_layers=12,
+                      num_attention_heads=12, max_position_embeddings=1024,
+                      dropout=0.0, dtype="bfloat16")
+GPT2_BATCH, GPT2_CTX, GPT2_S_MAX, GPT2_NEW = 8, 256, 512, 32
+# bench_decode.py:173-188's drive: one warm-up request of the context's
+# length and 8 new tokens, the counters reset, then these prompt lengths
+# (ctx - 17, ctx, ctx + 13, ctx - 5, ctx + 29, ctx), 32 new tokens each,
+# all submitted up front
+GPT2_REQ_LENS = [GPT2_CTX - 17, GPT2_CTX, GPT2_CTX + 13, GPT2_CTX - 5,
+                 GPT2_CTX + 29, GPT2_CTX]
+# the batchers of bench_decode.py:190-211 at its 8 slots and s_max 512
+GPT2_DENSE = dict(max_batch=GPT2_BATCH, s_max=GPT2_S_MAX)
+GPT2_PAGED = dict(GPT2_DENSE, block_size=64, prefill_chunk=64,
+                  policy="ondemand")
+GPT2_FUSED = dict(GPT2_PAGED, fused_admission=True)
+
+
+def gpt2_serving_model(seed):
+    """bench_decode's GPT-2 in bf16, its weights from a generator on the
+    card seeded with `seed`, in eval mode."""
+    from paddle_tpu_torch.models import GPT2Config, GPT2ForCausalLM
+    return GPT2ForCausalLM(GPT2Config(**GPT2_SERVE_CFG), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(seed), seed=seed).eval()
+
+
+def gpt2_traffic(seed, vocab):
+    """The warm-up prompt and the 6 measured prompts, drawn from `seed`."""
+    rng = np.random.RandomState(seed)
+    warm = rng.randint(0, vocab, GPT2_CTX).astype(np.int64)
+    return warm, [rng.randint(0, vocab, n).astype(np.int64)
+                  for n in GPT2_REQ_LENS]
+
+
+GPT2_WINDOWS = 3            # measured windows a run (the median reported)
+
+
+def gpt2_drive(model, config, compile, traffic, paged):
+    """bench_decode.py's drive through a new batcher: the warm-up request
+    (its captures land there), then GPT2_WINDOWS measured windows, each
+    with the counters, the registry and the launch counters set to 0 just
+    before, the 6 requests submitted up front and run to the end. Returns
+    (the first window's full sequences, the run's report: the median
+    window's figures, every window's tokens/s, and the launches of the
+    first window)."""
+    from paddle_tpu_torch.inference import (ContinuousBatcher,
+                                            PagedContinuousBatcher)
+    from paddle_tpu_torch.observability.metrics import get_registry
+    from paddle_tpu_torch.ops.hopper import launch_counts, reset_launch_counts
+    reg = get_registry()
+    warm, prompts = traffic
+    engine = "paged" if paged else "dense"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cls = PagedContinuousBatcher if paged else ContinuousBatcher
+    b = cls(model, compile=compile, **config)
+    b.submit(warm, 8)
+    b.run_until_done()
+    fns = {name: getattr(b, f"_{name}_fn", None)
+           for name in ("step", "chunk", "fused", "block")}
+    fns = {k: f for k, f in fns.items() if hasattr(f, "replays")}
+    before = {k: (f.captures, f.replays) for k, f in fns.items()}
+
+    def series(name):
+        return reg.get(name).labels(engine=engine)
+
+    windows, seqs = [], []
+    for w in range(GPT2_WINDOWS):
+        torch.cuda.synchronize()
+        b.reset_stats()
+        reg.reset()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rids = [b.submit(p, GPT2_NEW) for p in prompts]
+        outs = b.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = b.stats()
+        seqs.append([outs[r] for r in rids])
+        windows.append({
+            "wall_s": wall,
+            # bench_decode's figures: the batcher's own tokens/s and slot
+            # utilization over the measured window
+            "tokens_per_s": stats["tokens_per_sec"],
+            "tokens_per_s_wall": stats["generated_tokens"] / wall,
+            "slot_utilization": stats["slot_utilization"],
+            "steps": stats["steps"], "tokens": stats["generated_tokens"],
+            "completed_requests": stats["completed_requests"],
+            "decode_blocks": stats["decode_blocks"],
+            "preemptions": stats["preemptions"],
+            "admissions": series("serving_admissions_total").value,
+            "step_ms_median":
+                series("serving_step_seconds").quantile(0.5) * 1e3,
+            "ttft_ms_median":
+                series("serving_ttft_seconds").quantile(0.5) * 1e3,
+            "ttft_ms_max": series("serving_ttft_seconds").quantile(1.0)
+            * 1e3,
+            "launches": launch_counts()})
+    order = sorted(range(GPT2_WINDOWS),
+                   key=lambda i: windows[i]["tokens_per_s"])
+    report = {"compile": compile, **config,
+              **windows[order[GPT2_WINDOWS // 2]],
+              "launches": windows[0]["launches"],
+              "windows_tokens_per_s": [w["tokens_per_s"] for w in windows],
+              "windows_equal_tokens": all(
+                  all(np.array_equal(a, c) for a, c in zip(seqs[0], o))
+                  for o in seqs[1:]),
+              "windows_launches_equal": all(
+                  w["launches"] == windows[0]["launches"] for w in windows),
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              # per captured function: [captures, replays] over the
+              # batcher's life, and in the measured windows
+              "graphs": {k: [f.captures, f.replays] for k, f in fns.items()},
+              "window_replays": {k: f.replays - before[k][1]
+                                 for k, f in fns.items()},
+              # a window's fused steps and blocks, one replay each
+              "replays_per_window": {
+                  k: (f.replays - before[k][1]) / GPT2_WINDOWS
+                  for k, f in fns.items()},
+              "window_captures": {k: f.captures - before[k][0]
+                                  for k, f in fns.items()}}
+    if paged:
+        report["pages_leaked"] = reg.get("serving.pages_leaked").value
+        report["audit_pages"] = b.audit_pages()
+    return seqs[0], report, b
+
+
+def gpt2_generate_checks(model, seed):
+    """generate at bench_decode's shape (8 x 256 prompt tokens, s_max 512,
+    32 greedy new tokens) with the launch counts around it, its prefill
+    and eager decode timed, then bench_decode's compiled decode step:
+    to_static(decode_step, donate_args=(1,)), 4 warm and 32 timed steps,
+    its tokens equal to the eager step's from the same prefill."""
+    from paddle_tpu_torch.jit import to_static
+    from paddle_tpu_torch.ops.hopper import (KERNELS, launch_counts,
+                                             reset_launch_counts)
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    ids = torch.randint(0, cfg.vocab_size, (GPT2_BATCH, GPT2_CTX),
+                        generator=torch.Generator().manual_seed(seed + 1)
+                        ).cuda()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(ids, GPT2_NEW, s_max=GPT2_S_MAX)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    launches = launch_counts()
+    expect = dict.fromkeys(KERNELS, 0)
+    expect["flash_attention"] = layers
+    if launches != expect:
+        fail(f"gpt2 generate launch counts {launches}, expected {expect}")
+    if tuple(out.shape) != (GPT2_BATCH, GPT2_CTX + GPT2_NEW) or \
+            not torch.equal(out[:, :GPT2_CTX], ids) or \
+            int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        fail(f"gpt2 generate returned {tuple(out.shape)}, lost the prompt "
+             "or left the vocabulary")
+    with torch.no_grad():
+        prefill_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches, t = model.prefill(ids, GPT2_S_MAX)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        tok0 = logits[:, -1].argmax(-1, keepdim=True)
+        # eager decode: 36 steps (the graphed run's 4 warm and 32 timed),
+        # the tokens kept
+        eager_caches, eager_t = caches.clone(), t.clone()
+        tok, eager_toks = tok0, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(36):
+            lg, eager_caches, eager_t = model.decode_step(tok, eager_caches,
+                                                          eager_t)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            eager_toks.append(tok)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3 / 36
+        # bench_decode's kv_cache_compiled_tokens_per_s
+        step = to_static(model.decode_step, donate_args=(1,))
+        tok, graph_toks = tok0, []
+        for i in range(36):
+            if i == 4:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            lg, caches, t = step(tok, caches, t)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            graph_toks.append(tok)
+        torch.cuda.synchronize()
+        graphed_s = time.perf_counter() - t0
+        graph = [step.captures, step.replays]
+    same = all(torch.equal(a, g) for a, g in zip(eager_toks, graph_toks))
+    rec = {"phase": "gpt2_serve", "part": "generate", "batch": GPT2_BATCH,
+           "prompt": GPT2_CTX, "new_tokens": GPT2_NEW, "s_max": GPT2_S_MAX,
+           "layers": layers, "dtype": "bfloat16", "generate_s": generate_s,
+           "launches": launches, "prefill_ms": sorted(prefill_ms)[1],
+           "eager_decode_ms_per_step": eager_ms,
+           "eager_decode_tokens_per_s": GPT2_BATCH * 1e3 / eager_ms,
+           "graphed_decode_ms_per_step": graphed_s * 1e3 / 32,
+           "kv_cache_compiled_steps_per_s": 32 / graphed_s,
+           "kv_cache_compiled_tokens_per_s": GPT2_BATCH * 32 / graphed_s,
+           "graph": graph,
+           "graphed_equals_eager": same}
+    emit(rec)
+    if graph != [1, 36]:
+        fail(f"gpt2 compiled decode step: [captures, replays] {graph}, "
+             "expected one capture and 36 replays")
+    if not same:
+        fail("gpt2: the graphed decode step gave other tokens than the "
+             "eager one")
+    # no profiler session before the timings above (PERF.md: one may slow
+    # what runs after it); the profiles come last in the phase
+    return launches, {"ids": ids, "step": step, "tok": tok,
+                      "caches": caches, "t": t, "timed": rec}
+
+
+def gpt2_generate_profiles(model, held):
+    """The device time of generate's prefill, an eager decode step and a
+    replay of the captured one, and their idle shares against the timings
+    gpt2_generate_checks took before any profile."""
+    ids, step, tok, caches, t = (held[k] for k in ("ids", "step", "tok",
+                                                   "caches", "t"))
+    timed = held["timed"]
+    with torch.no_grad():
+        out = {"prefill": profile_one(lambda: model.prefill(ids,
+                                                            GPT2_S_MAX)),
+               "eager_step": profile_one(lambda: model.decode_step(
+                   tok, caches.clone(), t)),
+               "replay": profile_one(lambda: step(tok, caches, t))}
+    idle = {}
+    for part, wall in (("prefill", timed["prefill_ms"]),
+                       ("eager_step", timed["eager_decode_ms_per_step"]),
+                       ("replay", timed["graphed_decode_ms_per_step"])):
+        dev = out[part]["device_ms"]
+        idle[part] = ("not measured" if dev == "not measured"
+                      else 1 - dev / wall)
+    emit({"phase": "gpt2_serve", "profile": "generate",
+          "device_ms": {k: v["device_ms"] for k, v in out.items()},
+          "idle_share": idle, **out})
+    return out["prefill"]
+
+
+def phase_gpt2_serve(seed):
+    """bench_decode.py's serving cell on the port: GPT-2 124M-class (vocab
+    32000, 12 layers, 12 heads x 64; bf16, random weights from --seed,
+    eval mode), nothing cut. generate (8 x 256, 32 new) and the compiled
+    decode step (gpt2_generate_checks); then bench_decode's traffic
+    (gpt2_drive, 3 measured windows a run) through the dense
+    ContinuousBatcher (8 slots, s_max 512, the pow2 ladder) eager and
+    graphed, then the PagedContinuousBatcher (block 64, 64-token chunks, on
+    demand) graphed, per step with fused admission, and with fused
+    admission and decode_block=8; then the profiles. Checks: every run
+    completes its 6 requests at full length, each window the same tokens;
+    one capture of each captured function a run (in the warm-up), every
+    measured dense step a replay; the dense runs launch the flash forward
+    12 times an admission, the paged runs no kernel (their attention is
+    plain); the graphed dense tokens equal the eager ones and the fused
+    block run's equal the fused run's; where the paged or fused tokens
+    leave the dense run's, the two picks lie within twice the run's bf16
+    spread against a float32 copy (bf16_spread over the 6 requests: each
+    bf16 path's pick lies within the spread of the float32 top); no page
+    leaks, the audit clean; the prefill profiles show the bf16 tensor-core
+    forward at d 64 without dropout and no other attention kernel; the
+    model's dropout generators untouched; no dense-route warning. Reports
+    bench_decode's figures (kv_cache_compiled_tokens_per_s,
+    batcher_tokens_per_s, fused_batcher_tokens_per_s and the fused run's
+    slot utilization) and the device ms by part of a graphed paged step and
+    a fused step. Returns the launch counts of generate and of the dense
+    runs."""
+    import warnings
+    from paddle_tpu_torch.inference import PagedContinuousBatcher
+    from paddle_tpu_torch.models import GPT2Config, GPT2ForCausalLM
+    from paddle_tpu_torch.nn import functional as port_F
+    from paddle_tpu_torch.ops.hopper import KERNELS
+    t_phase = time.perf_counter()
+    dense_routes = set(port_F._DENSE_ROUTE_SEEN)
+    model = gpt2_serving_model(seed)
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    seeds0 = model.attention_seeds.get_state()
+    drops0 = model.dropout_generator.get_state()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        gen_launches, held = gpt2_generate_checks(model, seed)
+        traffic = gpt2_traffic(seed, cfg.vocab_size)
+        outs, reps, counts = {}, {}, {"generate": gen_launches}
+        # each run's captured functions that must be captured once (in
+        # the warm-up); any other is captured at most once
+        for mode, config, compile, paged, captured in (
+                ("dense eager", GPT2_DENSE, False, False, ()),
+                ("dense graphed", GPT2_DENSE, True, False, ("step",)),
+                ("paged graphed", GPT2_PAGED, True, True,
+                 ("step", "chunk")),
+                ("fused", GPT2_FUSED, True, True, ("step", "fused")),
+                ("fused block", dict(GPT2_FUSED, decode_block=8), True,
+                 True, ("fused", "block"))):
+            got, rep, b = gpt2_drive(model, config, compile, traffic, paged)
+            del b
+            torch.cuda.empty_cache()
+            emit({"phase": "gpt2_serve", "run": mode, "layers": layers,
+                  "requests": len(GPT2_REQ_LENS), **rep})
+            for p, o in zip(traffic[1], got):
+                if len(o) != len(p) + GPT2_NEW or \
+                        not np.array_equal(o[:len(p)], p):
+                    fail(f"gpt2 {mode} returned {len(o)} tokens for a "
+                         f"prompt of {len(p)}, or lost the prompt")
+            if rep["completed_requests"] != len(GPT2_REQ_LENS) or not \
+                    rep["windows_equal_tokens"] or \
+                    not rep["windows_launches_equal"]:
+                fail(f"gpt2 {mode} completed {rep['completed_requests']} "
+                     f"of {len(GPT2_REQ_LENS)} requests, or its windows "
+                     "gave other tokens or launches than its first")
+            expect = dict.fromkeys(KERNELS, 0)
+            if not paged:
+                expect["flash_attention"] = layers * rep["admissions"]
+            if rep["launches"] != expect:
+                fail(f"gpt2 {mode} launch counts {rep['launches']}, "
+                     f"expected {expect}")
+            graphs = rep["graphs"]
+            if any(graphs.get(k, [0])[0] != 1 for k in captured) or any(
+                    v[0] > 1 for v in graphs.values()) or any(
+                    rep["window_captures"].values()):
+                fail(f"gpt2 {mode}: graphs {graphs}, expected one capture "
+                     f"of each of {captured}, in the warm-up")
+            if compile and not paged and rep["window_replays"]["step"] \
+                    != GPT2_WINDOWS * rep["steps"]:
+                fail(f"gpt2 {mode}: {rep['window_replays']} replays of "
+                     f"{GPT2_WINDOWS} x {rep['steps']} steps")
+            if paged and (rep["pages_leaked"] or rep["audit_pages"]):
+                fail(f"gpt2 {mode} leaked pages: {rep['pages_leaked']}, "
+                     f"audit {rep['audit_pages']}")
+            if mode == "fused block" and not rep["decode_blocks"]:
+                fail("gpt2 fused block run ran no decode block")
+            outs[mode], reps[mode] = got, rep
+            if not paged:
+                counts[mode] = rep["launches"]
+        # the profiles, after every timing: generate's; 4 admissions at
+        # the 256 rung; a graphed paged step and a fused step (each
+        # batcher warmed, so its graphs are captured, then profiled); then
+        # the fused block run once more, to see whether the sessions slow
+        # what follows them
+        prefill_profile = gpt2_generate_profiles(model, held)
+        del held
+        admission_profile = profile_one(lambda: [model.prefill(
+            torch.from_numpy(np.resize(p, GPT2_CTX)[None]).cuda(),
+            GPT2_S_MAX) for p in traffic[1][:4]])
+        profiles = {}
+        for mode, config, prof in (
+                ("paged graphed", GPT2_PAGED,
+                 lambda b: paged_profile(b, prompt=GPT2_CTX, new=64)),
+                ("fused", GPT2_FUSED,
+                 lambda b: fused_profile(b, prompt=GPT2_CTX, short=64,
+                                         new=64))):
+            b = PagedContinuousBatcher(model, compile=True, **config)
+            b.submit(traffic[0], 8)
+            b.run_until_done()
+            profiles[mode] = prof(b)
+            emit({"phase": "gpt2_serve", "profile": mode, **profiles[mode]})
+            del b
+            torch.cuda.empty_cache()
+        _, after, b = gpt2_drive(model, dict(GPT2_FUSED, decode_block=8),
+                                 True, traffic, True)
+        del b
+        torch.cuda.empty_cache()
+    routes = [str(w.message) for w in caught
+              if "dense attention instead" in str(w.message)]
+    if routes or port_F._DENSE_ROUTE_SEEN != dense_routes:
+        fail(f"gpt2 serving took the dense attention route: {routes}, "
+             f"{port_F._DENSE_ROUTE_SEEN - dense_routes}")
+    if not (torch.equal(model.attention_seeds.get_state(), seeds0)
+            and torch.equal(model.dropout_generator.get_state(), drops0)):
+        fail("gpt2 serving advanced the model's dropout generators")
+    for what, prof in (("generate prefill", prefill_profile),
+                       ("dense admissions", admission_profile)):
+        builds = prof["flash_builds"]
+        if prof["flash_fwd_kernels"] != ["flash_fwd_wgmma"] or \
+                prof["flash_bwd_kernels"] or not builds or \
+                not all(b.startswith("flash_fwd_wgmma<64,")
+                        and not dropout_build(b) for b in builds):
+            fail(f"gpt2 {what} attention builds {builds}, expected the "
+                 "bf16 wgmma forward at d 64 without dropout only")
+    for mode, prof in profiles.items():
+        for part in ("admissions", "steps", "fused_steps"):
+            if part in prof and prof[part]["flash_fwd_kernels"]:
+                fail(f"gpt2 {mode} {part} ran a flash forward")
+
+    # the tokens: graphed dense equal eager dense; the fused block run
+    # equals the fused run; the paged and fused runs against the dense
+    # one within the model's own bf16 spread
+    if any(not np.array_equal(a, g) for a, g in
+           zip(outs["dense eager"], outs["dense graphed"])):
+        fail("gpt2: the graphed dense batcher gave other tokens than the "
+             "eager one")
+    if any(not np.array_equal(a, g) for a, g in
+           zip(outs["fused"], outs["fused block"])):
+        fail("gpt2: the decode blocks gave other tokens than the per-step "
+             "fused run")
+    ref = GPT2ForCausalLM(GPT2Config(**dict(GPT2_SERVE_CFG,
+                                            dtype="float32")),
+                          device="cuda").eval()
+    ref.load_state_dict(model.state_dict())
+    lens = [len(p) for p in traffic[1]]
+    spread, own_gap, spread_rows = bf16_spread(
+        model, ref, outs["dense eager"], lens)
+    checks = {}
+    for mode in ("paged graphed", "fused"):
+        diff = divergence(ref, [(n, d, o) for n, d, o in zip(
+            lens, outs["dense eager"], outs[mode])])
+        checks[mode] = {"differing_tokens": diff[0],
+                        "tokens": GPT2_NEW * len(lens),
+                        "first_differences": diff[1]}
+    del ref
+    torch.cuda.empty_cache()
+    fused_wins = (reps["fused"]["tokens_per_s"]
+                  > reps["paged graphed"]["tokens_per_s"])
+    rec = {"phase": "gpt2_serve", "check": "tokens",
+           "graphed_equals_eager": True, "block_equals_per_step": True,
+           "bf16_spread": spread, "pick_gap_limit": 2 * spread,
+           "dense_own_full_forward_gap": own_gap,
+           "bf16_spread_requests": spread_rows,
+           "vs_dense_eager": checks,
+           "bench_decode": {
+               "batcher_tokens_per_s": reps["paged graphed"]["tokens_per_s"],
+               "batcher_slot_utilization":
+                   reps["paged graphed"]["slot_utilization"],
+               "fused_batcher_tokens_per_s": reps["fused"]["tokens_per_s"],
+               "fused_batcher_slot_utilization":
+                   reps["fused"]["slot_utilization"],
+               "fused_block_tokens_per_s":
+                   reps["fused block"]["tokens_per_s"],
+               "paged_serving_decode_tokens_per_sec":
+                   reps["fused block"]["tokens_per_s"],
+               "dense_graphed_tokens_per_s":
+                   reps["dense graphed"]["tokens_per_s"]},
+           "fused_beats_graphed_paged": fused_wins,
+           "fused_block_after_profiles_tokens_per_s":
+               after["windows_tokens_per_s"],
+           "phase_s": time.perf_counter() - t_phase}
+    emit(rec)
+    # each of two bf16 paths picks within the spread of the float32 top,
+    # so two picks that differ lie within twice it of each other
+    over = [(m, r) for m, c in checks.items()
+            for r in c["first_differences"] if r["gap"] > 2 * spread]
+    if over:
+        fail(f"gpt2 paged or fused picks differ from the dense batcher's by "
+             f"more than twice the bf16 spread {spread}: {over}")
+    del model
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -3050,6 +3564,7 @@ def main(argv=None):
     fused = phase_fused(args.seed, model, spread, run_a)
     del model, dense_tokens, run_a
     torch.cuda.empty_cache()
+    gpt2_serve = phase_gpt2_serve(args.seed)
     train, train_profile = phase_train(args.seed)
     packed, _ = phase_train(args.seed, packed=True)
     gpt2 = phase_gpt2_train(args.seed)
@@ -3089,6 +3604,11 @@ def main(argv=None):
                                            for m, c in fused.items()}
         if gpt2[name] and train[name]:
             k["launches_per_gpt2_train_step"] = gpt2[name]
+        if gpt2_serve["generate"][name]:
+            # GPT-2 serving: per generate and per dense batcher run (the
+            # paged runs launch no kernel)
+            k["launches_per_gpt2_serving"] = {
+                m: c[name] for m, c in gpt2_serve.items()}
         if name == "rms_norm_bwd":
             # its two kernels apart: device ms per launch in the profiled
             # train step, whose norms are [8192, 4096] bf16

@@ -1,35 +1,48 @@
-"""Paged-KV attention for serving (counterpart of
-``paddle_tpu/incubate/nn/functional/decode_attention.py``: ``_token_timeline``,
-``_scatter_paged``, ``_gather_paged`` and ``block_gqa_attention``).
+"""Decode attention for serving (counterpart of
+``paddle_tpu/incubate/nn/functional/decode_attention.py``:
+``masked_multihead_attention``, ``_token_timeline``, ``_scatter_paged``,
+``_gather_paged``, ``block_multihead_attention`` and
+``block_gqa_attention``).
 
-The cache is a pool of physical pages ``[n_pages, KV, block_size, D]`` per
-layer; a block table ``[B, blocks_per_seq]`` maps each sequence's logical
-blocks onto pool rows. A call writes every packed token's K/V row at its
-timeline position (``dec + local``) through the block table, then attends
-each token over its sequence's gathered timeline. This is XLA code in the
-JAX package, so it is plain PyTorch here, not the stand-in for a kernel.
+``masked_multihead_attention`` is one token a sequence over a dense cache
+``[2, B, H, S_max, D]`` (GPT-2's decode step); the Llama decode step shares
+its body (``dense_decode``). The paged functions work on a pool of
+physical pages ``[n_pages, KV, block_size, D]`` per layer; a block table
+``[B, blocks_per_seq]`` maps each sequence's logical blocks onto pool rows.
+A call writes every packed token's K/V row at its timeline position
+(``dec + local``) through the block table, then attends each token over
+its sequence's gathered timeline. ``block_multihead_attention`` (GPT-2's
+fused ``qkv``, one K/V head a head) is ``block_gqa_attention`` with groups
+of one. All of this is XLA code in the JAX package, so it is plain
+PyTorch here, not the stand-in for a kernel.
 
 Differences from the JAX package, same results:
 
-- The pools are written in place and the same tensors are returned (the JAX
-  package returns new arrays).
-- Attention is computed per sequence (``[B, KV, rep * s, S_kv]`` scores),
-  never over per-token copies of the timeline (the JAX code gathers
-  ``[T, KV, S_kv, D]``, 8.6 GB for K alone at a 512-token admission of a
-  7B model with s_max 1024).
+- The caches and pools are written in place and the same tensors are
+  returned (the JAX package returns new arrays).
+- Scores, softmax and P V run in float32 (the JAX package scores in the
+  inputs' type and softmaxes in float32: the same for float32 inputs).
+- Paged attention is computed per sequence (``[B, KV, rep * s, S_kv]``
+  scores), never over per-token copies of the timeline (the JAX code
+  gathers ``[T, KV, S_kv, D]``, 8.6 GB for K alone at a 512-token
+  admission of a 7B model with s_max 1024).
 - JAX clamps an out-of-range gather index; here the two clamps the path
   relies on are explicit: the block index ``pos // block_size`` at
   ``blocks_per_seq - 1`` (pad rows past a sequence's capacity) and the RoPE
   position at the table's last row.
 
 Not ported: the int8 pools (static and dynamic scales, ROADMAP queue 1,
-item 3); any of their arguments raises ``NotImplementedError``.
+item 3), any of whose arguments raises ``NotImplementedError``; the decode
+RoPE table and additive masks of the two GPT-2-style functions
+(``rotary_tensor``, ``src_mask``; ``rope_emb``, ``mask``, ``tgt_mask``:
+ROADMAP queue 3, item 3), which raise too.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["block_gqa_attention"]
+__all__ = ["block_gqa_attention", "block_multihead_attention",
+           "masked_multihead_attention"]
 
 _NEG = -1e9
 
@@ -124,6 +137,74 @@ def _flat_ints(x, device):
     return torch.as_tensor(x, device=device).reshape(-1).long()
 
 
+def _not_ported(what, names):
+    raise NotImplementedError(
+        f"{what}: {', '.join(names)} not ported yet (ROADMAP, queue 3, "
+        "item 3)")
+
+
+def dense_decode(q, k, v, cache_k, cache_v, t):
+    """One token a sequence over a dense cache: write k/v ``[B, KV, D]`` at
+    row ``t`` ``[B]`` of cache_k/cache_v ``[B, KV, S_max, D]`` in place,
+    then attend q ``[B, H, D]`` (H a multiple of KV: grouped heads) over
+    the rows at or before t, in float32. Returns ``[B, H * D]`` in q's
+    type."""
+    b, h, d = q.shape
+    kvh, s_max = cache_k.shape[1], cache_k.shape[2]
+    b_idx = torch.arange(b, device=q.device)
+    cache_k[b_idx, :, t] = k.to(cache_k.dtype)
+    cache_v[b_idx, :, t] = v.to(cache_v.dtype)
+    qg = q.reshape(b, kvh, h // kvh, d).float()
+    scores = torch.einsum("bgrd,bgsd->bgrs", qg, cache_k.float()) \
+        * (1.0 / d ** 0.5)
+    pos = torch.arange(s_max, device=q.device)
+    scores = torch.where(pos <= t[:, None, None, None], scores, _NEG)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bgrs,bgsd->bgrd", probs, cache_v.float())
+    return ctx.reshape(b, h * d).to(q.dtype)
+
+
+def masked_multihead_attention(x, cache_kv=None, bias=None, src_mask=None,
+                               cum_offsets=None, sequence_lengths=None,
+                               rotary_tensor=None, beam_cache_offset=None,
+                               qkv_out_scale=None, out_shift=None,
+                               out_smooth=None, seq_len=1, rotary_emb_dims=0,
+                               use_neox_rotary_style=False,
+                               compute_dtype="default", out_scale=-1,
+                               quant_round_type=1, quant_max_bound=127.0,
+                               quant_min_bound=-127.0):
+    """One-token decode attention over a dense KV cache.
+
+    x: ``[B, 3 * H * D]``, this step's fused qkv (split as ``(3, H, D)``),
+    plus ``bias`` (``[3, H, D]`` or flat) when given. cache_kv:
+    ``[2, B, H, S_max, D]``; row ``sequence_lengths`` (``[B, 1]``, default
+    0) of each sequence is written in place, and each sequence attends to
+    its rows at or before it. Returns ``(out [B, H * D], cache_kv)``, the
+    cache the one given. The arguments the JAX function ignores are
+    ignored here too; its quantized path raises as it does, and the decode
+    RoPE table (``rotary_tensor``) and ``src_mask`` are not ported."""
+    if qkv_out_scale is not None or out_scale != -1:
+        raise NotImplementedError(
+            "quantized decode path: use paddle_tpu.quantization")
+    if src_mask is not None or (rotary_tensor is not None
+                                and rotary_emb_dims > 0):
+        _not_ported("masked_multihead_attention",
+                    ["src_mask", "rotary_tensor"])
+    if cache_kv is None:
+        raise ValueError("cache_kv is required")
+    _, bsz, nh, _, hd = cache_kv.shape
+    qkv = x.reshape(bsz, 3, nh, hd)
+    if bias is not None:
+        qkv = qkv + bias.reshape(1, 3, nh, hd)
+    if sequence_lengths is not None:
+        t = sequence_lengths.reshape(bsz).long()
+    else:
+        t = torch.zeros(bsz, dtype=torch.long, device=x.device)
+    out = dense_decode(qkv[:, 0], qkv[:, 1], qkv[:, 2], cache_kv[0],
+                       cache_kv[1], t)
+    return out, cache_kv
+
+
 def block_gqa_attention(q, k, v, key_cache, value_cache, seq_lens_encoder,
                         seq_lens_decoder, seq_lens_this_time, cu_seqlens_q,
                         block_tables, block_size=64, rope_cos=None,
@@ -200,3 +281,62 @@ def block_gqa_attention(q, k, v, key_cache, value_cache, seq_lens_encoder,
                 out[a:b] = _attend(q[None, a:b], gk[i:i + 1], gv[i:i + 1],
                                    pos[None, a:b], kv_len[i:i + 1])[0]
     return out.to(q.dtype), kc, vc
+
+
+def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
+                              seq_lens_decoder, seq_lens_this_time,
+                              padding_offsets, cum_offsets, cu_seqlens_q,
+                              cu_seqlens_k, block_tables, pre_key_cache=None,
+                              pre_value_cache=None, cache_k_quant_scales=None,
+                              cache_v_quant_scales=None,
+                              cache_k_dequant_scales=None,
+                              cache_v_dequant_scales=None, qkv_out_scale=None,
+                              qkv_bias=None, out_shift=None, out_smooth=None,
+                              rope_emb=None, mask=None, tgt_mask=None,
+                              max_seq_len=-1, block_size=64,
+                              use_neox_style=False,
+                              use_dynamic_cachekv_quant=False,
+                              compute_dynamic_scales=False,
+                              dynamic_scale_valid=None,
+                              quant_round_type=1, quant_max_bound=127.0,
+                              quant_min_bound=-127.0, out_scale=-1,
+                              compute_dtype="default"):
+    """Paged-KV attention over packed fused qkv (one K/V head a head).
+
+    qkv: ``[T, 3 * H * D]`` packed unpadded tokens, split as ``(3, H, D)``
+    (plus ``qkv_bias``, ``[3 * H * D]``, when given), sequence boundaries
+    in cu_seqlens_q (read on the host, as ``block_gqa_attention`` reads
+    them). key_cache/value_cache: ``[n_pages, H, block_size, D]``. The
+    rest is ``block_gqa_attention``'s contract with groups of one, whose
+    body this runs: prefill when ``seq_lens_encoder[i] > 0``, else append
+    at ``seq_lens_decoder[i]``; the pools are written in place.
+
+    Returns ``(out [T, H * D], qkv, key_cache, value_cache)``, the pools
+    the ones given. The arguments the JAX function ignores are ignored here
+    too (``padding_offsets``, ``cum_offsets``, ``cu_seqlens_k``, the
+    ``pre_*`` caches); its quantized activations raise as it does; the int8
+    pools raise as ``block_gqa_attention``'s do; ``rope_emb``, ``mask`` and
+    ``tgt_mask`` are not ported."""
+    if qkv_out_scale is not None or out_scale != -1:
+        raise NotImplementedError(
+            "quantized activation path: use paddle_tpu.quantization")
+    if rope_emb is not None or mask is not None or tgt_mask is not None:
+        _not_ported("block_multihead_attention",
+                    ["rope_emb", "mask", "tgt_mask"])
+    token_num = qkv.shape[0]
+    nh, hd = key_cache.shape[1], key_cache.shape[3]
+    qkv3 = qkv.reshape(token_num, 3, nh, hd)
+    if qkv_bias is not None:
+        qkv3 = qkv3 + qkv_bias.reshape(1, 3, nh, hd)
+    out, kc, vc = block_gqa_attention(
+        qkv3[:, 0], qkv3[:, 1], qkv3[:, 2], key_cache, value_cache,
+        seq_lens_encoder, seq_lens_decoder, seq_lens_this_time,
+        cu_seqlens_q, block_tables, block_size=block_size,
+        cache_k_quant_scales=cache_k_quant_scales,
+        cache_v_quant_scales=cache_v_quant_scales,
+        cache_k_dequant_scales=cache_k_dequant_scales,
+        cache_v_dequant_scales=cache_v_dequant_scales,
+        use_dynamic_cachekv_quant=use_dynamic_cachekv_quant,
+        compute_dynamic_scales=compute_dynamic_scales,
+        dynamic_scale_valid=dynamic_scale_valid)
+    return out, qkv, kc, vc

@@ -544,10 +544,11 @@ class ContinuousBatcher(_BatcherBase):
 
     model: any model exposing ``prefill(input_ids, s_max, n_valid)`` and
     ``decode_step(tok, caches, t)`` with the ``[B, 1]`` t convention; in
-    the port that is ``LlamaForCausalLM`` (``GPT2ForCausalLM`` has no
-    serving methods yet). max_batch: slot count (one decode step of this
-    batch serves every step). s_max: per-slot cache rows (prompt +
-    generation must fit). eos_id: optional early-stop token.
+    the port ``LlamaForCausalLM`` and ``GPT2ForCausalLM`` (whose config has
+    no ``num_key_value_heads``: the cache takes its head count).
+    max_batch: slot count (one decode step of this batch serves every
+    step). s_max: per-slot cache rows (prompt + generation must fit).
+    eos_id: optional early-stop token.
 
     compile: capture the decode step as a CUDA graph (``jit.to_static``,
     the caches donated: the graph updates ``self._caches`` in place, and
@@ -723,10 +724,12 @@ class PagedContinuousBatcher(_BatcherBase):
     garbage decode writes land in scratch and never touch a live page.
 
     model: a model with the paged methods (``paged_alloc``,
-    ``paged_prefill_into``, ``paged_decode_step``); in the port that is
-    ``LlamaForCausalLM``. max_batch: slot count. s_max: rows a sequence may
-    hold (prompt + generation). block_size: rows a page. n_pages: pool size
-    (default: every slot's worst case). eos_id: optional early-stop token.
+    ``paged_prefill_into``, ``paged_decode_step``, and
+    ``paged_fused_step`` for fused admission); in the port
+    ``LlamaForCausalLM`` and ``GPT2ForCausalLM``. max_batch: slot count.
+    s_max: rows a sequence may hold (prompt + generation). block_size: rows
+    a page. n_pages: pool size (default: every slot's worst case). eos_id:
+    optional early-stop token.
 
     policy:
       * ``"reserve"``: admission reserves the worst-case page count

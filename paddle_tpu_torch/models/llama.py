@@ -1,11 +1,12 @@
 """Llama: training (``forward(input_ids, labels=)``, with per-layer
-recompute) and serving (prefill, then greedy decode over a dense KV cache).
+recompute) and serving (prefill, then greedy, sampled or beam decode over a
+dense KV cache, or greedy over a paged one).
 
 Counterpart of ``paddle_tpu/models/llama.py`` (config, RoPE, GQA attention,
 the unrolled decoder stack, the LM loss, ``prefill``/``decode_step``/
-``generate``). The layers train: full-sequence attention runs the flash
-kernels (forward and backward) and every norm the RMSNorm kernels when the
-model lies on the card. The one-token decode attention is plain PyTorch, as
+``generate``/``generate_beam``). The layers train: full-sequence attention
+runs the flash kernels (forward and backward) and every norm the RMSNorm
+kernels when the model lies on the card. The one-token decode attention is plain PyTorch, as
 it was XLA code in the JAX package.
 
 Training and the full forward take an optional additive ``attn_mask``
@@ -17,9 +18,11 @@ batcher (``inference/serving.py``) drives; the paged route
 (``paged_alloc``, ``paged_prefill_into``, ``paged_prefill``,
 ``paged_decode_step``, ``paged_fused_step``, ``generate_paged``) is what
 the paged batcher drives, its attention
-``incubate.nn.functional.block_gqa_attention`` over a page pool. Not ported
-yet: MoE, context parallelism, speculative decode, beam search, sampling in
-``generate`` and int8 caches. ``scan_layers`` is accepted and
+``incubate.nn.functional.block_gqa_attention`` over a page pool.
+``generate`` samples (temperature, top-k, top-p) and ``generate_beam``
+searches beams through the drivers GPT-2 shares (``models/generation.py``).
+Not ported yet: MoE, context parallelism, speculative decode and int8
+caches. ``scan_layers`` is accepted and
 runs the unrolled stack (in the JAX package it is a compile-time device
 with the unrolled loop's numerics); selective recompute recomputes whole
 layers, as the JAX package's unrolled path does.
@@ -35,14 +38,12 @@ from torch import nn
 
 from ..device import default_device, to_torch_dtype
 from ..distributed.fleet.recompute import recompute
-from ..incubate.nn.functional.decode_attention import block_gqa_attention
+from ..incubate.nn.functional.decode_attention import (block_gqa_attention,
+                                                       dense_decode)
 from ..nn import functional as F
 from ..nn.layers import Embedding, Linear, RMSNorm
-from .generation import (generate_loop, paged_generate_loop,
-                         paged_prefill_impl, resolve_s_max)
-
-NEG_INF = -1e30
-
+from . import generation
+from .generation import paged_generate_loop, paged_prefill_impl
 
 @dataclass
 class LlamaConfig:
@@ -122,27 +123,14 @@ def _decode_attn(q, k_new, v_new, cache_k, cache_v, t, cos_tab, sin_tab):
 
     q [B, H, D] and k_new/v_new [B, KV, D] are pre-RoPE; cache_k/v
     [B, KV, S_max, D] hold post-RoPE rows; t [B] are the write positions.
-    RoPE applies at t, the new rows are written into the cache IN PLACE
-    (the JAX package returns new arrays; updating in place saves a copy of
-    every layer's cache per token), and the grouped heads score in float32
-    against positions <= t. Returns ctx [B, H*D].
+    RoPE applies at t, then ``dense_decode`` writes the new rows into the
+    cache IN PLACE (the JAX package returns new arrays; updating in place
+    saves a copy of every layer's cache per token) and scores the grouped
+    heads in float32 against positions <= t. Returns ctx [B, H*D].
     """
-    b, h, d = q.shape
-    kvh, s_max = cache_k.shape[1], cache_k.shape[2]
-    q = _rope_at(q, cos_tab, sin_tab, t)
-    k_new = _rope_at(k_new, cos_tab, sin_tab, t)
-    b_idx = torch.arange(b, device=q.device)
-    cache_k[b_idx, :, t] = k_new.to(cache_k.dtype)
-    cache_v[b_idx, :, t] = v_new.to(cache_v.dtype)
-    qg = q.reshape(b, kvh, h // kvh, d).float()
-    scale = 1.0 / (d ** 0.5)
-    scores = torch.einsum("bgrd,bgsd->bgrs", qg, cache_k.float()) * scale
-    pos = torch.arange(s_max, device=q.device)
-    scores = torch.where(pos[None, None, None, :] <= t[:, None, None, None],
-                         scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    ctx = torch.einsum("bgrs,bgsd->bgrd", probs, cache_v.float())
-    return ctx.reshape(b, h * d).to(q.dtype)
+    return dense_decode(_rope_at(q, cos_tab, sin_tab, t),
+                        _rope_at(k_new, cos_tab, sin_tab, t), v_new,
+                        cache_k, cache_v, t)
 
 
 class LlamaAttention(nn.Module):
@@ -379,16 +367,28 @@ class LlamaForCausalLM(nn.Module):
         return self._lm_logits(model.norm(hidden)), caches, t + 1
 
     @torch.no_grad()
-    def generate(self, input_ids, max_new_tokens, s_max=None, eos_id=None,
-                 pad_id=None):
-        """Greedy incremental decode over the KV cache. Returns int64 ids
-        [B, S + max_new_tokens]; with ``eos_id`` a row that emitted it
-        continues with ``pad_id`` (default: eos_id)."""
-        s = input_ids.shape[1]
-        s_max = resolve_s_max(self.config, s, max_new_tokens, s_max)
-        return generate_loop(lambda: self.prefill(input_ids, s_max),
-                             self.decode_step, input_ids, max_new_tokens,
-                             eos_id=eos_id, pad_id=pad_id)
+    def generate(self, input_ids, max_new_tokens, s_max=None,
+                 decode_fn=None, do_sample=False, temperature=1.0,
+                 top_k=0, top_p=None, seed=None, eos_id=None, pad_id=None):
+        """Incremental decode over the KV cache: greedy by default (the
+        argmax on the device); ``do_sample`` draws on the host with
+        temperature, top-k and top-p from ``seed``. With ``eos_id`` a row
+        that emitted it continues with ``pad_id`` (default: eos_id).
+        ``decode_fn`` replaces ``decode_step`` (a captured one, for
+        instance). Returns int64 ids [B, S + max_new_tokens]."""
+        return generation.generate(
+            self, input_ids, max_new_tokens, s_max, decode_fn,
+            do_sample=do_sample, temperature=temperature, top_k=top_k,
+            top_p=top_p, seed=seed, eos_id=eos_id, pad_id=pad_id)
+
+    @torch.no_grad()
+    def generate_beam(self, input_ids, max_new_tokens, num_beams=4,
+                      s_max=None, decode_fn=None, length_penalty=0.0):
+        """Beam search over the GQA KV cache (``generation.beam_loop``).
+        Returns the best beam per row, int64 [B, S + max_new_tokens]."""
+        return generation.generate_beam(self, input_ids, max_new_tokens,
+                                        num_beams, s_max, decode_fn,
+                                        length_penalty)
 
     # -- paged-KV serving route (block table over a page pool, GQA-native) --
 

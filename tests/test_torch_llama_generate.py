@@ -258,3 +258,25 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     bad = [(str(p.relative_to(REPO)), m) for p in files for m in _imports(p)
            if m.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]
     assert bad == []
+
+
+def test_generate_beam_tokens_equal(pair):
+    """Beam search (the driver GPT-2 shares) over row 0 with two beams: the
+    prefill and the steps at the shapes the tests above compiled."""
+    jm, pm, ids = pair
+    with paddle.no_grad():
+        ref = np.asarray(jm.generate_beam(paddle.to_tensor(ids[:1]), NEW,
+                                          num_beams=2).numpy())
+    out = pm.generate_beam(torch.from_numpy(ids[:1]), NEW, num_beams=2)
+    assert out.dtype == torch.int64
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("kw", [dict(temperature=0.8, top_k=20, seed=5),
+                                dict(temperature=1.2, top_p=0.9, seed=6)],
+                         ids=["top_k", "top_p"])
+def test_sampled_generate_tokens_equal(pair, kw):
+    jm, pm, ids = pair
+    ref = _jax_generate(jm, ids, NEW, do_sample=True, **kw)
+    out = pm.generate(torch.from_numpy(ids), NEW, do_sample=True, **kw)
+    np.testing.assert_array_equal(out.numpy(), ref)

@@ -10,6 +10,14 @@ table). The output must agree within 1e-5 relative to its largest
 magnitude; the pools must be bit-equal after the call. Llama's paged
 methods, which call it, are held to the JAX package's in
 tests/test_torch_paged_batching.py.
+
+The JAX package compiles each op once per shape, so the calls take the
+shapes Llama tiny's paged calls give the function there (4 query and 2 KV
+heads of 16, a 64-row RoPE table, 2 sequences of 8 blocks of 4 rows in a
+pool of 16 pages, prefill 2 x 6 tokens as ``generate_paged``'s, a
+12-token chunk as a 12-token prompt's, decode 2 x 1, an 8-token chunk
+past the table): run in one process, the two files compile those ops
+once.
 """
 import numpy as np
 import pytest
@@ -30,25 +38,24 @@ def _rope_tables(rows, d):
     return np.cos(freqs).astype(np.float32), np.sin(freqs).astype(np.float32)
 
 
-def _attention_inputs(mode, rep, bs, seed=0, s=5, kvh=2, d=8,
+def _attention_inputs(mode, rep, bs, seed=0, kvh=2, d=16,
                       past_capacity=False, lens=None):
     """Packed q/k/v, pools with random contents, a shuffled block table
-    with the scratch row in it, and the sequence lengths of one call:
-    3 sequences of ``s`` tokens, or in decode 3 * s sequences of one. Every
-    call packs 15 tokens into timelines of 32 rows (8 blocks of 4 or 2 of
-    16) in pools of one size a block size, so the JAX package, which
-    compiles each op once per shape, shares most of its ops across the
-    cases."""
+    whose last entry is the scratch row, and the sequence lengths of one
+    call: 2 sequences of 6 tokens in prefill, one of 12 appended after
+    ``dec`` in chunk mode (``lens``: uneven ones), 2 of one in decode. The
+    timelines hold 32 rows (8 blocks of 4, or 2 of 16) in pools of 16
+    pages."""
     rng = np.random.RandomState(seed)
-    b = 3 * s if mode == "decode" else 3
+    if lens is None:
+        lens = {"prefill": [6, 6], "chunk": [12], "decode": [1, 1]}[mode]
+    b = len(lens)
     bps = 32 // bs
-    n_pages = 3 * s * bps + 3
+    n_pages = 15                                          # and the scratch
     pools = [rng.randn(n_pages + 1, kvh, bs, d).astype(np.float32)
              for _ in range(2)]
-    bt = rng.permutation(n_pages)[:b * bps].reshape(b, bps).astype(np.int32)
-    bt[-1, -1] = n_pages                                  # scratch
-    if lens is None:
-        lens = [1 if mode == "decode" else s] * b
+    bt = np.append(rng.permutation(n_pages)[:b * bps - 1],
+                   n_pages).reshape(b, bps).astype(np.int32)
     cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
     this = np.asarray(lens, np.int32)
     if mode == "prefill":
@@ -118,16 +125,17 @@ def test_block_gqa_attention_matches_the_jax_package(mode, rep, bs):
 @pytest.mark.parametrize("mode", ["prefill", "chunk"])
 def test_uneven_packing_attends_sequence_by_sequence(mode):
     _assert_close(*_both(_attention_inputs(mode, 2, 4, seed=1,
-                                           lens=[4, 6, 5])))
+                                           lens=[5, 7])))
 
 
 @pytest.mark.parametrize("rope_rows", [64, 12], ids=["table", "rope_clamp"])
 def test_clamped_indices_match_the_jax_package(rope_rows):
     # rows past the block table write into its last page (the JAX gather
     # clamps the block index), two of them at the same offset as an
-    # earlier row of the same call; with 12 RoPE rows, positions 12-17 also
+    # earlier row of the same call; with 12 RoPE rows, positions 12-37 also
     # take the table's last row
-    x = _attention_inputs("chunk", 2, 4, seed=2, past_capacity=True)
+    x = _attention_inputs("chunk", 2, 4, seed=2, past_capacity=True,
+                          lens=[8])
     _assert_close(*_both(x, rope_rows=rope_rows))
 
 
