@@ -143,6 +143,31 @@ Phases, each printing JSON lines (any failure exits non-zero):
    steps, blocks, TTFT, peak memory, captures and replays; a graphed paged
    step's and a fused step's device ms by part; all profiles after the
    timings, then the block run again.
+4f. gateway: benchmarks/bench_gateway.py's TPU configuration, the same
+   GPT-2 behind paddle_tpu_torch.inference.Gateway over 2 graphed dense
+   ContinuousBatcher replicas (4 slots, s_max 512, each warmed alone so
+   its decode graph is captured before the windows): a warm-up request,
+   then 3 windows of 12 requests (240-271 prompt tokens, 32 new; every
+   third tenant "batch" at low priority, sessions s0-s3) under each of
+   least_loaded, affinity and weighted_rr; a lone graphed batcher on the
+   same prompts; a failover run in which chaos gateway.step.r1 kills r1 at
+   its 9th step with work in flight; then the shared-prefix workload (4
+   system prompts of 128 tokens, 24 requests, tails of 16-48 tokens, 12
+   new) over 2 graphed paged replicas under affinity, prefix cache on and
+   off, and its no-shared-prefix control. Checks: every window completes
+   its 12 requests with no failure, 12 flash forwards an admission and
+   no other launch, no capture and a replay a replica step; each policy's
+   and the failover run's tokens equal the lone batcher's or part within
+   twice the run's bf16 spread against a float32 copy; in the failover
+   run r1 is dead, requests were requeued and every request finished on
+   r0; the shared-prefix runs hit the cache when on, launch no kernel and
+   leak no page; the profiles of one window a policy show the bf16 wgmma
+   forward at d 64 without dropout only. Per policy: routed tokens/s,
+   TTFT and TPOT p50/p99 from the gateway's request records, completions,
+   requeues, each replica's completions, the host ms of a tick outside
+   the replicas' steps, a tick's device idle share and the flash
+   forward's launches; the shared-prefix hit rate, TTFT p99 and tokens/s,
+   cache on and off (the goodput ledger's figures printed as absent).
 5. train: Llama-2-7B width at 8 of its 32 layers trains 5 steps of
    4 x 2048 tokens (AdamW, amp.decorate O2 bf16, recompute, TrainStep);
    the launch counts of one step prove the path ran every kernel, and its
@@ -3049,6 +3074,469 @@ def phase_gpt2_serve(seed):
     return counts
 
 
+# -- phase 4f ----------------------------------------------------------------
+
+# benchmarks/bench_gateway.py's TPU branch (:249-267, 43-65): the GPT-2 of
+# gpt2_serve (bf16 here; the bench leaves the config's float32), 2 dense
+# replicas of 4 slots and s_max 512 behind one gateway, a 256-token warm-up
+# request, then 12 requests of 256 + (i * 7) % 32 - 16 prompt tokens and 32
+# new; every third is tenant "batch" at low priority, the rest
+# "interactive" at high; session s{i % 4}
+GW_REPLICAS, GW_SLOTS, GW_S_MAX = 2, 4, 512
+GW_CTX, GW_REQUESTS, GW_NEW = 256, 12, 32
+GW_POLICIES = ("least_loaded", "affinity", "weighted_rr")
+GW_WINDOWS = 3              # measured windows a policy (the median reported)
+GW_DENSE = dict(max_batch=GW_SLOTS, s_max=GW_S_MAX)
+# the failover run: r1 dies at its 9th step with work (its requests then
+# hold ~9 delivered tokens each and resume on r0 from prompt + delivered)
+GW_KILL_AFTER = 8
+# the shared-prefix workload (bench_gateway.py:136-230, TPU sizing): 4
+# system prompts of 128 tokens, 24 requests with tails of 16-48 tokens and
+# 12 new, over 2 paged replicas under the affinity policy
+GW_SYS, GW_SYS_LEN, GW_SHARED_REQ, GW_TAILS, GW_SHARED_NEW = \
+    4, 128, 24, (16, 48), 12
+GW_PAGED = dict(max_batch=4, s_max=512, block_size=16, n_pages=160,
+                policy="ondemand", prompt_buckets="pow2")
+
+
+def gw_traffic(seed, vocab):
+    """The warm-up prompt and the 12 requests (prompt, tenant, priority,
+    session), drawn from `seed`; every policy gets the same ones."""
+    rng = np.random.RandomState(seed + 12)
+    warm = rng.randint(0, vocab, GW_CTX).astype(np.int64)
+    reqs = []
+    for i in range(GW_REQUESTS):
+        low = i % 3 == 2
+        reqs.append((rng.randint(0, vocab, GW_CTX + (i * 7) % 32 - 16)
+                     .astype(np.int64), "batch" if low else "interactive",
+                     "low" if low else "high", f"s{i % 4}"))
+    return warm, reqs
+
+
+def gw_dense_replica(model, warm):
+    """A graphed dense replica, warmed alone so its decode graph is captured
+    before it joins a gateway."""
+    from paddle_tpu_torch.inference import ContinuousBatcher
+    b = ContinuousBatcher(model, compile=True, **GW_DENSE)
+    b.submit(warm, 4)
+    b.run_until_done()
+    return b
+
+
+def gw_quantile(xs, q):
+    """bench_gateway.py's percentile: the sorted sample at int(q * n)."""
+    s = sorted(xs)
+    return s[min(len(s) - 1, int(q * len(s)))]
+
+
+def gw_drive(gw, submits):
+    """Submit, step the gateway until its work is done, and read every
+    request off the gateway's own records before popping it (registry
+    histograms are process-wide; bench_gateway.py:105-126). Returns (the
+    sequences in submit order, the window's figures, the requests'
+    records)."""
+    from paddle_tpu_torch.observability.metrics import get_registry
+    from paddle_tpu_torch.ops.hopper import launch_counts, reset_launch_counts
+    reg = get_registry()
+    for rep in gw.pool.replicas():
+        rep.batcher.reset_stats()
+    gw.reset_stats()
+    reg.reset()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gids = [submit(gw) for submit in submits]
+    steps = 0
+    while gw._has_work():
+        gw.step()
+        steps += 1
+        if steps > 5000:
+            fail("gateway: the work did not finish in 5000 steps")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = gw.stats()
+    ttft, tpot, placed, seqs, records = [], [], [], [], []
+    for g in gids:
+        req = gw._finished.get(g)
+        if req is None:
+            fail(f"gateway: request {g} did not complete "
+                 f"({gw._failed.get(g)!r})")
+        records.append(req)
+        ttft.append(req.first_token_t - req.submit_t)
+        n = len(req.delivered)
+        if n > 1:
+            tpot.append((req.finish_t - req.first_token_t) / (n - 1))
+        placed.append(req.replica)
+        seqs.append(gw.pop_result(g))
+    # the host's share of a tick: the window's wall less the replicas'
+    # steps (gateway.replica.step_seconds), over the ticks
+    rep_s = sum(reg.get("gateway.replica.step_seconds")
+                .labels(replica=r.name).sum for r in gw.pool.replicas())
+    return seqs, {
+        "wall_s": wall, "gateway_steps": steps,
+        "tokens_per_s": st["delivered_tokens"] / wall,
+        "delivered_tokens": st["delivered_tokens"],
+        "ttft_ms_p50": gw_quantile(ttft, 0.5) * 1e3,
+        "ttft_ms_p99": gw_quantile(ttft, 0.99) * 1e3,
+        "tpot_ms_p50": gw_quantile(tpot, 0.5) * 1e3 if tpot else None,
+        "tpot_ms_p99": gw_quantile(tpot, 0.99) * 1e3 if tpot else None,
+        "completions": st["completions"], "requeued": st["requeued"],
+        "failures": st["failures"],
+        "replica_completed": {r.name: r.batcher.stats()["completed_requests"]
+                              for r in gw.pool.replicas()},
+        "replica_steps": {r.name: r.batcher.stats()["steps"]
+                          for r in gw.pool.replicas()},
+        "placed": placed,
+        "tick_host_ms": (wall - rep_s) * 1e3 / max(steps, 1),
+        "step_ms": wall * 1e3 / max(steps, 1),
+        "launches": launch_counts()}, records
+
+
+def gw_routed_run(model, policy, traffic, layers):
+    """One policy's gateway over two graphed dense replicas: the gateway's
+    warm-up request, then GW_WINDOWS windows of the 12 requests. Checks
+    each window: 12 completions and no failure, the flash forward launched
+    12 times an admission and nothing else, no graph captured, every
+    replica step a replay. Returns (the first window's sequences, the
+    report: the median window's figures and every window's tokens/s, and
+    the gateway, kept for the profile)."""
+    from paddle_tpu_torch.inference import Gateway
+    from paddle_tpu_torch.observability.metrics import get_registry
+    from paddle_tpu_torch.ops.hopper import KERNELS
+    warm, reqs = traffic
+    gw = Gateway(policy=policy)
+    for i in range(GW_REPLICAS):
+        gw.add_replica(f"r{i}", gw_dense_replica(model, warm))
+    gw.submit(warm, 4, tenant="warmup")
+    gw.run_until_done()
+    submits = [lambda g, p=p, t=t, pr=pr, s=s: g.submit(
+        p, GW_NEW, tenant=t, priority=pr, session_id=s)
+        for p, t, pr, s in reqs]
+    windows, seqs = [], None
+    for w in range(GW_WINDOWS):
+        graphs0 = {r.name: (r.batcher._step_fn.captures,
+                            r.batcher._step_fn.replays)
+                   for r in gw.pool.replicas()}
+        got, rep, _ = gw_drive(gw, submits)
+        admissions = get_registry().get("serving_admissions_total") \
+            .labels(engine="dense").value
+        rep["admissions"] = admissions
+        rep["window_captures"] = sum(
+            r.batcher._step_fn.captures - graphs0[r.name][0]
+            for r in gw.pool.replicas())
+        rep["window_replays"] = sum(
+            r.batcher._step_fn.replays - graphs0[r.name][1]
+            for r in gw.pool.replicas())
+        expect = dict.fromkeys(KERNELS, 0)
+        expect["flash_attention"] = layers * admissions
+        if rep["completions"] != GW_REQUESTS or rep["failures"] or \
+                admissions != GW_REQUESTS:
+            fail(f"gateway {policy} window {w}: {rep['completions']} of "
+                 f"{GW_REQUESTS} completed, {rep['failures']} failed, "
+                 f"{admissions} admissions")
+        if rep["launches"] != expect:
+            fail(f"gateway {policy} window {w}: launch counts "
+                 f"{rep['launches']}, expected {expect}")
+        if rep["window_captures"] or rep["window_replays"] != \
+                sum(rep["replica_steps"].values()):
+            fail(f"gateway {policy} window {w}: {rep['window_captures']} "
+                 f"captures and {rep['window_replays']} replays for "
+                 f"{rep['replica_steps']} replica steps")
+        for (p, *_), o in zip(reqs, got):
+            if len(o) != len(p) + GW_NEW or not np.array_equal(o[:len(p)],
+                                                               p):
+                fail(f"gateway {policy} returned {len(o)} tokens for a "
+                     f"prompt of {len(p)}, or lost the prompt")
+        if seqs is None:
+            seqs = got
+        elif any(not np.array_equal(a, b) for a, b in zip(seqs, got)):
+            rep["other_tokens_than_window_0"] = True
+        windows.append(rep)
+    order = sorted(range(GW_WINDOWS),
+                   key=lambda i: windows[i]["tokens_per_s"])
+    report = {"policy": policy, **windows[order[GW_WINDOWS // 2]],
+              "launches": windows[0]["launches"],
+              "windows_tokens_per_s": [w["tokens_per_s"] for w in windows],
+              "windows_equal_tokens": not any(
+                  w.get("other_tokens_than_window_0") for w in windows),
+              "graphs": {r.name: [r.batcher._step_fn.captures,
+                                  r.batcher._step_fn.replays]
+                         for r in gw.pool.replicas()}}
+    return seqs, report, gw
+
+
+def gw_failover(model, traffic, layers):
+    """A least_loaded gateway whose replica r1 dies (chaos
+    gateway.step.r1 raises at its step GW_KILL_AFTER + 1, with work in
+    flight): r1 is declared dead, its requests requeue and finish on r0.
+    Returns (the sequences, each request's resume point or None, the
+    report)."""
+    from paddle_tpu_torch.inference import Gateway
+    from paddle_tpu_torch.observability.trace_context import get_recorder
+    from paddle_tpu_torch.resilience import arm_scenario, disarm
+    warm, reqs = traffic
+    gw = Gateway(policy="least_loaded")
+    for i in range(GW_REPLICAS):
+        gw.add_replica(f"r{i}", gw_dense_replica(model, warm))
+    submits = [lambda g, p=p, t=t, pr=pr, s=s: g.submit(
+        p, GW_NEW, tenant=t, priority=pr, session_id=s)
+        for p, t, pr, s in reqs]
+    arm_scenario(f"seed=0; gateway.step.r1:transient_error:"
+                 f"after={GW_KILL_AFTER},count=1")
+    try:
+        seqs, rep, records = gw_drive(gw, submits)
+    finally:
+        disarm()
+    # each requeued request's resume point: the tokens it held when r1 died
+    # (its trace's requeue event)
+    resume = []
+    for req in records:
+        ev = [s for s in get_recorder().spans(req.trace.trace_id)
+              if s.name == "requeue"] if req.trace is not None else []
+        resume.append(ev[0].tags["delivered"] if ev else None)
+    rep.update({"alive": {r.name: r.alive for r in gw.pool.replicas()},
+                "requeued_requests": sum(r is not None for r in resume),
+                "resume_points": resume})
+    if rep["alive"] != {"r0": True, "r1": False}:
+        fail(f"gateway failover: replicas alive {rep['alive']}, expected r1 "
+             "dead")
+    if rep["requeued"] < 1 or rep["completions"] != GW_REQUESTS or \
+            rep["failures"] or set(rep["placed"]) != {"r0"}:
+        fail(f"gateway failover: requeued {rep['requeued']}, "
+             f"{rep['completions']} completions, {rep['failures']} "
+             f"failures, finished on {set(rep['placed'])}")
+    if rep["launches"]["flash_attention"] < layers * GW_REQUESTS:
+        fail(f"gateway failover: {rep['launches']['flash_attention']} flash "
+             "forwards, fewer than one prefill a request")
+    del gw
+    return seqs, resume, rep
+
+
+def gw_shared_prefix(model, seed):
+    """bench_gateway.py's shared-prefix workload on 2 paged replicas
+    (graphed) under the affinity policy: the prefix cache on, then off,
+    over the identical workload, the warm phase (each system prompt with
+    three tails) kept out of the window; then the no-shared-prefix control,
+    on and off. Checks: every request completes at its length, no page
+    leaks, the cache hits when on, no kernel launch (paged attention is
+    plain). Returns the report."""
+    from paddle_tpu_torch.inference import Gateway, PagedContinuousBatcher
+    from paddle_tpu_torch.ops.hopper import KERNELS
+    vocab = model.config.vocab_size
+
+    def build(cache_on):
+        gw = Gateway(policy="affinity")
+        for i in range(GW_REPLICAS):
+            gw.add_replica(f"r{i}", PagedContinuousBatcher(
+                model, compile=True, prefix_cache=cache_on, **GW_PAGED))
+        return gw
+
+    def cache_totals(gw):
+        hit = miss = 0
+        for rep in gw.pool.replicas():
+            c = rep.batcher.prefix_cache
+            if c is not None:
+                hit += c.hit_tokens
+                miss += c.miss_tokens
+        return hit, miss
+
+    def measured(gw, prompts):
+        seqs, rep, _ = gw_drive(gw, [
+            lambda g, p=p, i=i: g.submit(p, GW_SHARED_NEW, tenant=f"t{i % 4}")
+            for i, p in enumerate(prompts)])
+        for p, o in zip(prompts, seqs):
+            if len(o) != len(p) + GW_SHARED_NEW:
+                fail(f"gateway shared prefix returned {len(o)} tokens for a "
+                     f"prompt of {len(p)}")
+        audits = {r.name: r.batcher.audit_pages() for r in gw.pool.replicas()}
+        if any(audits.values()) or rep["completions"] != len(prompts):
+            fail(f"gateway shared prefix: audits {audits}, "
+                 f"{rep['completions']} of {len(prompts)} completed")
+        if rep["launches"] != dict.fromkeys(KERNELS, 0):
+            fail(f"gateway shared prefix launched {rep['launches']}")
+        rep["audit_pages"] = audits
+        return rep
+
+    out = {}
+    for label, cache_on in (("on", True), ("off", False)):
+        rng = np.random.RandomState(seed + 7)    # one workload, both runs
+        sys_prompts = [rng.randint(0, vocab, GW_SYS_LEN)
+                       for _ in range(GW_SYS)]
+        prompts = [np.concatenate([sys_prompts[i % GW_SYS], rng.randint(
+            0, vocab, int(rng.randint(*GW_TAILS)))])
+            for i in range(GW_SHARED_REQ)]
+        gw = build(cache_on)
+        lo, hi = GW_TAILS
+        for sp in sys_prompts:
+            for wt in (lo, (lo + hi) // 2, hi):
+                gw.submit(np.concatenate([sp, rng.randint(0, vocab, wt)]), 4,
+                          tenant="warmup")
+        gw.run_until_done()
+        hit0, miss0 = cache_totals(gw)
+        rep = measured(gw, prompts)
+        hit1, miss1 = cache_totals(gw)
+        rep["hit_tokens"], rep["miss_tokens"] = hit1 - hit0, miss1 - miss0
+        out[label] = rep
+        del gw
+    if not out["on"]["hit_tokens"]:
+        fail("gateway shared prefix: the cache never hit")
+    control = {}
+    for label, cache_on in (("on", True), ("off", False)):
+        rng = np.random.RandomState(seed + 11)
+        prompts = [rng.randint(0, vocab, GW_SYS_LEN + int(rng.randint(
+            *GW_TAILS))) for _ in range(GW_SHARED_REQ)]
+        gw = build(cache_on)
+        gw.submit(rng.randint(0, vocab, GW_SYS_LEN), 4, tenant="warmup")
+        gw.run_until_done()
+        control[label] = measured(gw, prompts)
+        del gw
+    torch.cuda.empty_cache()
+    on, off = out["on"], out["off"]
+    return {
+        "prefix_hit_rate": on["hit_tokens"] / max(
+            on["hit_tokens"] + on["miss_tokens"], 1),
+        "ttft_ms_p99_cache_on": on["ttft_ms_p99"],
+        "ttft_ms_p99_cache_off": off["ttft_ms_p99"],
+        "shared_tokens_per_s_cache_on": on["tokens_per_s"],
+        "shared_tokens_per_s_cache_off": off["tokens_per_s"],
+        "no_shared_tokens_per_s_cache_on": control["on"]["tokens_per_s"],
+        "no_shared_tokens_per_s_cache_off": control["off"]["tokens_per_s"],
+        # the trace-derived goodput figures (observability.ledger over the
+        # waterfalls) are not ported yet: ROADMAP.md, queue 1, item 9
+        "goodput_frac_cache_on": "absent (not ported)",
+        "goodput_frac_cache_off": "absent (not ported)",
+        "runs": {"cache on": on, "cache off": off,
+                 "control cache on": control["on"],
+                 "control cache off": control["off"]}}
+
+
+def phase_gateway(seed):
+    """The port's serving Gateway at bench_gateway.py's TPU configuration:
+    GPT-2 124M-class (gpt2_serving_model: vocab 32000, 12 x 768, 12 heads
+    of 64, bf16, eval mode) behind a gateway of 2 graphed dense
+    ContinuousBatcher replicas (4 slots, s_max 512). Runs: the routed run
+    under least_loaded, affinity and weighted_rr, each on a fresh gateway
+    (gw_routed_run, 3 windows); a lone graphed dense batcher (4 slots) on
+    the same prompts, whose tokens each policy's must equal, or, where they
+    differ, part within twice the run's bf16 spread against a float32 copy
+    (bf16_spread, divergence); the failover run (gw_failover), whose
+    tokens are held to the lone batcher's the same way before and after
+    each request's resume point; the shared-prefix workload over 2 graphed
+    paged replicas (gw_shared_prefix); then one profiled window a policy,
+    for a step's idle share. Reports per policy the median window's routed
+    tokens/s, TTFT and TPOT p50/p99 from the gateway's request records,
+    completions, requeues, each replica's completions, the host ms of a
+    tick outside the replicas' steps, and the flash forward's launches.
+    Returns {kernel: {run: launches}} of the dense gateway runs."""
+    from paddle_tpu_torch.models import GPT2Config, GPT2ForCausalLM
+    from paddle_tpu_torch.ops.hopper import KERNELS
+    t_phase = time.perf_counter()
+    model = gpt2_serving_model(seed)
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    traffic = gw_traffic(seed, cfg.vocab_size)
+    warm, reqs = traffic
+    prompts = [r[0] for r in reqs]
+    lens = [len(p) for p in prompts]
+    with torch.no_grad():
+        routed, gateways = {}, {}
+        for policy in GW_POLICIES:
+            seqs, rep, gw = gw_routed_run(model, policy, traffic, layers)
+            routed[policy] = (seqs, rep)
+            gateways[policy] = gw
+            emit({"phase": "gateway", "run": policy, "layers": layers,
+                  "replicas": GW_REPLICAS, **rep})
+        lone = gw_dense_replica(model, warm)
+        rids = [lone.submit(p, GW_NEW) for p in prompts]
+        outs = lone.run_until_done()
+        lone_seqs = [outs[r] for r in rids]
+        del lone
+        fo_seqs, resume, fo_rep = gw_failover(model, traffic, layers)
+        emit({"phase": "gateway", "run": "failover", **fo_rep})
+        shared = gw_shared_prefix(model, seed)
+        emit({"phase": "gateway", "run": "shared prefix", **shared})
+        # the profiles, after every timing: one window a policy, for a
+        # gateway step's device time against the median window's wall
+        idle = {}
+        for policy, gw in gateways.items():
+            rep = routed[policy][1]
+            submits = [lambda g, p=p, t=t, pr=pr, s=s: g.submit(
+                p, GW_NEW, tenant=t, priority=pr, session_id=s)
+                for p, t, pr, s in reqs]
+            prof = profile_one(lambda: gw_drive(gw, submits))
+            dev = prof["device_ms"]
+            idle[policy] = {
+                "window_device_ms": dev,
+                "step_device_ms": (dev / rep["gateway_steps"]
+                                   if dev != "not measured" else dev),
+                "step_wall_ms": rep["step_ms"],
+                "device_idle_share": (1 - dev / (rep["wall_s"] * 1e3)
+                                      if dev != "not measured" else dev),
+                "top": prof["top"][:6], "flash_builds": prof["flash_builds"]}
+            if prof["flash_fwd_kernels"] != ["flash_fwd_wgmma"] or not all(
+                    b.startswith("flash_fwd_wgmma<64,") and not
+                    dropout_build(b) for b in prof["flash_builds"]):
+                fail(f"gateway {policy}: attention builds "
+                     f"{prof['flash_builds']}, expected the bf16 wgmma "
+                     "forward at d 64 without dropout only")
+        del gateways
+        torch.cuda.empty_cache()
+    # the tokens: each policy and the failover run against the lone batcher
+    ref = GPT2ForCausalLM(GPT2Config(**dict(GPT2_SERVE_CFG,
+                                            dtype="float32")),
+                          device="cuda").eval()
+    ref.load_state_dict(model.state_dict())
+    spread, own_gap, _ = bf16_spread(model, ref, lone_seqs, lens)
+    checks = {}
+    for name, seqs in [(p, routed[p][0]) for p in GW_POLICIES] + \
+            [("failover", fo_seqs)]:
+        diff = divergence(ref, [(n, a, b) for n, a, b in zip(
+            lens, lone_seqs, seqs)])
+        checks[name] = {"differing_tokens": diff[0],
+                        "tokens": GW_NEW * len(lens),
+                        "first_differences": diff[1]}
+    fo = checks["failover"]
+    for r in fo["first_differences"]:
+        r["resume_point"] = resume[r["i"]]
+        r["before_resume"] = resume[r["i"]] is None or \
+            r["at"] < resume[r["i"]]
+    del ref
+    torch.cuda.empty_cache()
+    rec = {"phase": "gateway", "check": "tokens",
+           "bf16_spread": spread, "pick_gap_limit": 2 * spread,
+           "lone_own_full_forward_gap": own_gap, "vs_lone_batcher": checks,
+           "idle": idle,
+           "bench_gateway": {
+               "routed_tokens_per_s": {p: routed[p][1]["tokens_per_s"]
+                                       for p in GW_POLICIES},
+               **{f"{k}_ms_{q}": routed["least_loaded"][1][f"{k}_ms_{q}"]
+                  for k in ("ttft", "tpot") for q in ("p50", "p99")},
+               "completions": routed["least_loaded"][1]["completions"],
+               "requeued": routed["least_loaded"][1]["requeued"],
+               **{k: shared[k] for k in (
+                   "prefix_hit_rate", "ttft_ms_p99_cache_on",
+                   "ttft_ms_p99_cache_off", "shared_tokens_per_s_cache_on",
+                   "shared_tokens_per_s_cache_off",
+                   "no_shared_tokens_per_s_cache_on",
+                   "no_shared_tokens_per_s_cache_off")}},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(rec)
+    # each of two bf16 paths picks within the spread of the float32 top, so
+    # two picks that differ lie within twice it of each other
+    over = [(m, r) for m, c in checks.items()
+            for r in c["first_differences"] if r["gap"] > 2 * spread]
+    if over:
+        fail(f"gateway tokens differ from the lone batcher's by more than "
+             f"twice the bf16 spread {spread}: {over}")
+    del model
+    torch.cuda.empty_cache()
+    counts = {}
+    for name in KERNELS:
+        counts[name] = {p: routed[p][1]["launches"][name] for p in GW_POLICIES}
+        counts[name]["failover"] = fo_rep["launches"][name]
+    return counts
+
+
 # Late in a long process a profiler session has lost its first few device
 # records, whatever their timing, which emptied sessions of a few launches
 # (PERF.md, section 7): each session opens with this many spin kernels,
@@ -3565,6 +4053,7 @@ def main(argv=None):
     del model, dense_tokens, run_a
     torch.cuda.empty_cache()
     gpt2_serve = phase_gpt2_serve(args.seed)
+    gateway = phase_gateway(args.seed)
     train, train_profile = phase_train(args.seed)
     packed, _ = phase_train(args.seed, packed=True)
     gpt2 = phase_gpt2_train(args.seed)
@@ -3609,6 +4098,10 @@ def main(argv=None):
             # paged runs launch no kernel)
             k["launches_per_gpt2_serving"] = {
                 m: c[name] for m, c in gpt2_serve.items()}
+        if any(gateway[name].values()):
+            # per gateway window of 12 requests over two graphed dense
+            # replicas, by policy, and in the failover run
+            k["launches_per_gateway_run"] = gateway[name]
         if name == "rms_norm_bwd":
             # its two kernels apart: device ms per launch in the profiled
             # train step, whose norms are [8192, 4096] bf16

@@ -30,7 +30,7 @@ Every node carries a chain hash (``h_i = H(h_{i-1}, block_tokens)``);
 without the token arrays. Hashes are a routing hint only; the tree compares
 real token blocks.
 
-Not ported yet (ROADMAP, queue 1, item 1): ``HostTier``, ``DiskTier``,
+Not ported yet (ROADMAP.md, queue 1, item 1.4): ``HostTier``, ``DiskTier``,
 demotion and promotion, session pins. The constructor raises when given a
 host tier.
 """
@@ -99,7 +99,7 @@ class RadixPrefixCache:
         if host_tier is not None or spill is not None:
             raise NotImplementedError(
                 "RadixPrefixCache: the host and disk tiers are not ported "
-                "yet (ROADMAP, queue 1, item 1)")
+                "yet (ROADMAP.md, queue 1, item 1.4)")
         self.block_size = block_size
         self._root = _Node((), -1, None, _ROOT_HASH, 0)
         self._tick = 0

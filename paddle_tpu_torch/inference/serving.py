@@ -17,8 +17,8 @@ move pages, not tensors, and a radix prefix cache can share a prompt's
 pages across requests (``PagedContinuousBatcher``'s docstring).
 
 Not ported yet: the paged batcher's int8 pages, host and disk tiers with
-promotion, sessions and speculative decode; the tensor-parallel shard group
-and the gateway's requeue tags on the prefill span.
+promotion, sessions and speculative decode; the tensor-parallel shard
+group.
 """
 from __future__ import annotations
 
@@ -325,8 +325,21 @@ class _BatcherBase:
 
     def _trace_prefill_begin(self, req: Request):
         if req.trace is not None:
+            tags = {}
+            if req.tokens:
+                # preemption resume: this prefill recomputes KV the
+                # eviction threw away (prompt + already-decoded tokens)
+                tags["evict_recompute"] = 1
+            elif req.trace.baggage.get("requeued"):
+                # failover survivor: the prompt re-prefill duplicates
+                # work the dead/drained replica already did
+                tags["requeue_recompute"] = 1
+                if req.trace.baggage.get("drained"):
+                    # administrative drain, not a death — same recompute
+                    # cost, different cause
+                    tags["drain_recompute"] = 1
             req.spans["prefill"] = req.trace.begin(
-                "prefill", parent=req.spans.get("admit"))
+                "prefill", parent=req.spans.get("admit"), **tags)
 
     def _trace_prefill_end(self, req: Request, **tags):
         sp = req.spans.pop("prefill", None)
@@ -771,10 +784,11 @@ class PagedContinuousBatcher(_BatcherBase):
     max_queue_depth: shed with ``Overloaded`` past it. default_deadline_s:
     the deadline of requests submitted without one.
 
-    Not ported yet (ROADMAP, queue 1, item 1), each raising
-    ``NotImplementedError`` when set: ``cache_quant``, ``kv_quant``,
-    ``tier_quant``, ``draft_model``, ``host_kv_gib``, ``disk_kv_dir``,
-    ``session_store``.
+    Not ported yet, each raising ``NotImplementedError`` that names its
+    ROADMAP.md item when set: ``cache_quant``, ``kv_quant`` and
+    ``tier_quant`` (queue 1, item 1.3); ``host_kv_gib``, ``disk_kv_dir``
+    and ``session_store`` (item 1.4); ``draft_model``, speculative decode
+    and its failover (item 1.5).
     """
 
     _engine = "paged"
@@ -845,18 +859,23 @@ class PagedContinuousBatcher(_BatcherBase):
                 raise ValueError(
                     f"fused_admission needs the slot capacity ({cap}) to "
                     f"be a multiple of prefill_chunk ({prefill_chunk})")
-        waiting = {"cache_quant": cache_quant, "kv_quant": kv_quant,
-                   "tier_quant": tier_quant, "draft_model": draft_model,
-                   "host_kv_gib": host_kv_gib, "disk_kv_dir": disk_kv_dir,
-                   "session_store": session_store}
+        # each option with the ROADMAP.md queue 1 item that ports it
+        waiting = {"cache_quant": (cache_quant, "1.3"),
+                   "kv_quant": (kv_quant, "1.3"),
+                   "tier_quant": (tier_quant, "1.3"),
+                   "draft_model": (draft_model, "1.5"),
+                   "host_kv_gib": (host_kv_gib, "1.4"),
+                   "disk_kv_dir": (disk_kv_dir, "1.4"),
+                   "session_store": (session_store, "1.4")}
         if prefix_cache and float(_os.environ.get("PADDLE_KV_HOST_GIB", "0")
                                   or 0.0) > 0:
-            waiting["PADDLE_KV_HOST_GIB"] = _os.environ["PADDLE_KV_HOST_GIB"]
-        for name, value in waiting.items():
+            waiting["PADDLE_KV_HOST_GIB"] = (
+                _os.environ["PADDLE_KV_HOST_GIB"], "1.4")
+        for name, (value, item) in waiting.items():
             if value is not None:
                 raise NotImplementedError(
                     f"PagedContinuousBatcher: {name}={value!r} is not "
-                    "ported yet (ROADMAP, queue 1, item 1)")
+                    f"ported yet (ROADMAP.md, queue 1, item {item})")
         device = next(model.parameters()).device
         if compile and device.type != "cuda":
             raise ValueError(

@@ -10,10 +10,16 @@ and close several steps later (``decode`` opens at admission and closes
 when the request finishes). ``TraceSpan.end`` is idempotent, so abort
 paths (deadline expiry, ``abort``) can close whatever is open without
 double-recording. Finished spans go to a bounded ring (``get_recorder``),
-to the ``trace.*`` metrics and, when armed, to the telemetry spool.
+to the ``trace.*`` metrics and, when armed, to the telemetry spool; span
+open and close also go to the flight recorder's ring when it is armed.
+The gateway mints one trace per request at submit, and the trace survives
+a requeue off a dead replica (later spans carry the ``requeued=1``
+baggage tag).
 
-Not ported yet: the flight-recorder journal of span open/close, the W3C
-``traceparent`` propagation and the Chrome/JSONL exports.
+Set ``PADDLE_TRACE=0`` to disable minting entirely.
+
+Not ported yet: the W3C ``traceparent`` propagation and the Chrome/JSONL
+exports.
 """
 from __future__ import annotations
 
@@ -25,11 +31,22 @@ from collections import deque
 from typing import Dict, List, Optional
 
 __all__ = ["TraceContext", "TraceSpan", "TraceRecorder", "get_recorder",
-           "new_trace", "end_open_spans"]
+           "new_trace", "enabled", "end_open_spans"]
 
 _TRACE_IDS = itertools.count(1)
 _SPAN_IDS = itertools.count(1)
 _RECORDER_CAP = int(os.environ.get("PADDLE_TRACE_CAP", "8192"))
+
+
+def enabled() -> bool:
+    """Tracing on/off switch (env ``PADDLE_TRACE``, default on)."""
+    return os.environ.get("PADDLE_TRACE", "1") != "0"
+
+
+def _flight_record(kind: str, **fields) -> None:
+    # one cached-global check when the flight ring is disarmed
+    from .flight import flight_record
+    flight_record(kind, **fields)
 
 
 def _trace_metrics():
@@ -60,6 +77,8 @@ class TraceSpan:
         self.start_ns = time.perf_counter_ns()
         self.end_ns: Optional[int] = None
         self.tags: Dict[str, object] = dict(tags or {})
+        _flight_record("span_open", name=name, trace_id=trace_id,
+                       span_id=self.span_id)
 
     @property
     def duration_s(self) -> Optional[float]:
@@ -75,6 +94,8 @@ class TraceSpan:
             return self
         self.end_ns = time.perf_counter_ns()
         self.tags.update(tags)
+        _flight_record("span_close", name=self.name,
+                       trace_id=self.trace_id, span_id=self.span_id)
         get_recorder().record(self)
         spans_c, _, span_h = _trace_metrics()
         spans_c.inc()
@@ -122,6 +143,10 @@ class TraceContext:
         return TraceSpan(self.trace_id, name,
                          parent_id=pid.span_id if pid else None,
                          tags=merged)
+
+    def event(self, name: str, **tags) -> TraceSpan:
+        """Instantaneous marker span (begin + immediate end)."""
+        return self.begin(name, **tags).end()
 
     def finish(self, **tags) -> None:
         if self.root is not None:
@@ -176,6 +201,10 @@ class TraceRecorder:
         if trace_id is not None:
             out = [s for s in out if s.trace_id == trace_id]
         return sorted(out, key=lambda s: s.start_ns)
+
+    def trace_ids(self) -> List[str]:
+        """Distinct trace ids in recording order."""
+        return list(dict.fromkeys(s.trace_id for s in self.spans()))
 
     def clear(self) -> None:
         with self._lock:

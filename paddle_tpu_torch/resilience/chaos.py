@@ -2,10 +2,13 @@
 ``paddle_tpu/resilience/chaos.py``).
 
 A registry of NAMED fault points woven into the hot seams. The port
-instruments one so far:
+instruments two so far:
 
   * ``serving.step`` -- the continuous batcher's step
-    (``inference/serving.py``).
+    (``inference/serving.py``);
+  * ``gateway.step.<replica>`` -- one named replica's step in the
+    gateway's pool (``inference/gateway/replica.py``); an error there
+    bypasses the pool's retry policy and declares the replica dead.
 
 Fault kinds: ``delay`` (sleep), ``transient_error`` (raise a retryable
 ``TransientChaosError``), ``torn_write`` and ``nan_grad`` (returned to the
@@ -155,10 +158,12 @@ class ChaosRegistry:
         if spec is None:
             return None
         _registry_metrics().labels(point=point, kind=spec.kind).inc()
-        # spool the injection BEFORE executing it: for kill_rank this is
-        # the victim's last line ("fault" key, not "kind": that slot names
-        # the record type)
+        # journal the injection BEFORE executing it: for kill_rank this is
+        # the victim's last flight-ring entry and spool line ("fault" key,
+        # not "kind": that slot names the record type)
         from ..observability.fleet import spool_event
+        from ..observability.flight import flight_record
+        flight_record("chaos", point=point, fault=spec.kind)
         spool_event("chaos", point=point, fault=spec.kind)
         if spec.kind == "delay":
             time.sleep(spec.delay_s)
