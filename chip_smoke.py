@@ -168,6 +168,25 @@ Phases, each printing JSON lines (any failure exits non-zero):
    the replicas' steps, a tick's device idle share and the flash
    forward's launches; the shared-prefix hit rate, TTFT p99 and tokens/s,
    cache on and off (the goodput ledger's figures printed as absent).
+4g. quant: int8 serving. The GPT-2 of gpt2_serve: generate and the
+   captured decode step in bf16 and with nn.quant.quantize_linear_layers'
+   weight-only int8 linears (bench_decode's kv_cache_int8 arm); the paged
+   batcher (block 64, 64-token chunks, graphed) on gpt2_serve's traffic in
+   bf16 and with quantization.serving_quantize's int8 weights
+   (bench_quant's weights arm: layers quantized and falling back, bytes
+   saved, tokens/s, TPOT p50, token match); calibrate_cachekv_int8 on one
+   [8, 256] batch, then the paged batcher with kv_quant="int8" and the
+   fused one with decode_block=8; cache_quant="dynamic_int8" (tokens/s,
+   cachekv_clip_rate). Then Llama-2-7B Run A with kv_quant="int8",
+   graphed, after calibration on one 512-token prompt: wall, tokens/s,
+   the pool's bytes, a step's gather and dequantization against bf16's
+   gather and cast. Checks: int8 pools where asked; layer 0's codes of one
+   prefill equal clip(round(x * q)) of its own rows, bit for bit; GPT-2's
+   int8 pages' and weights' prefill logits within 5% of the largest bf16
+   one, Llama's int8 pages' within 3x bf16's own distance from float32;
+   each quantized batcher's tokens within twice the bf16 spread of the
+   same quantized model's own route; the flash forward in GPT-2's
+   calibration and generates, the RMSNorm kernel in Llama's run.
 5. train: Llama-2-7B width at 8 of its 32 layers trains 5 steps of
    4 x 2048 tokens (AdamW, amp.decorate O2 bf16, recompute, TrainStep);
    the launch counts of one step prove the path ran every kernel, and its
@@ -2119,7 +2138,8 @@ def paged_step_split(b, reps=20, chunk=0, chunk_at=448):
     """Device ms of one decode step's parts at the batcher's state (its page
     pool, block table and timelines), each timed alone with CUDA events
     (median of `reps`) and multiplied by the step's count of it: the
-    timeline gather and float32 cast of K and V, the attention over them
+    timeline gather and float32 cast of K and V (of an int8 pool: the
+    gather and dequantization, "gather_and_dequant"), the attention over them
     (scores, mask, softmax, P V), the weight products (7 a layer and the
     LM head for Llama, 4 for GPT-2) and the 2L + 1 norms. With `chunk` C,
     the fused step's parts: the products and norms over B + C rows, one
@@ -2130,17 +2150,33 @@ def paged_step_split(b, reps=20, chunk=0, chunk_at=448):
     products, norm, head, layers, h, kvh, d = layer_parts(model)
     bsz = b.max_batch
     kc, vc = b._state["layers"][0]
+    # an int8 pool's timeline is dequantized as it is gathered (layer 0's
+    # scales: static, or the slots' dynamic rows)
+    kdq = vdq = None
+    if kc.dtype == torch.int8:
+        sc = (b._state.get("cache_scales") or model._cachekv_scales)[0]
+        kdq, vdq = sc["kdq"], sc["vdq"]
+    part = "gather_and_dequant" if kdq is not None else "gather_and_cast"
     b._sync_tables()
     bt = b._state["block_tables"].long()
     dec = b._state["dec_lens"].long()
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = bsz + chunk
+    act = next(model.parameters()).dtype
     x = torch.randn(rows, cfg.hidden_size, generator=gen, device="cuda",
-                    dtype=kc.dtype)
-    q = torch.randn(bsz, 1, h, d, generator=gen, device="cuda",
-                    dtype=kc.dtype)
-    gk = decode_attention._gather_paged(kc, bt)
-    gv = decode_attention._gather_paged(vc, bt)
+                    dtype=act)
+    q = torch.randn(bsz, 1, h, d, generator=gen, device="cuda", dtype=act)
+
+    def gather(table):
+        rows = table.shape[0]
+        return (decode_attention._gather_paged(
+                    kc, table, None if kdq is None else kdq[:rows]
+                    if kdq.dim() == 2 else kdq),
+                decode_attention._gather_paged(
+                    vc, table, None if vdq is None else vdq[:rows]
+                    if vdq.dim() == 2 else vdq))
+
+    gk, gv = gather(bt)
 
     def events(fn):
         fn()
@@ -2162,13 +2198,9 @@ def paged_step_split(b, reps=20, chunk=0, chunk_at=448):
     wide = torch.zeros(rows, cfg.intermediate_size, device="cuda",
                        dtype=x.dtype)
 
-    def gather(table):
-        return (decode_attention._gather_paged(kc, table),
-                decode_attention._gather_paged(vc, table))
-
     with torch.no_grad():
         split = {
-            "gather_and_cast": layers * events(lambda: gather(bt)),
+            part: layers * events(lambda: gather(bt)),
             "attention": layers * events(lambda: decode_attention._attend(
                 q, gk, gv, dec[:, None], dec + 1)),
             # the LM head over the decode rows (and the chunk's one row)
@@ -2181,12 +2213,11 @@ def paged_step_split(b, reps=20, chunk=0, chunk_at=448):
             # the admission's timeline (any table row: each gathers all
             # its pages) and its chunk, in the middle of a prompt
             qc = torch.randn(1, chunk, h, d, generator=gen, device="cuda",
-                             dtype=kc.dtype)
+                             dtype=act)
             gkc, gvc = gather(bt[:1])
             pos = torch.arange(chunk_at, chunk_at + chunk,
                                device="cuda")[None]
-            split["gather_and_cast"] += layers * events(
-                lambda: gather(bt[:1]))
+            split[part] += layers * events(lambda: gather(bt[:1]))
             split["attention"] += layers * events(
                 lambda: decode_attention._attend(
                     qc, gkc, gvc, pos, pos[:, -1] + 1))
@@ -2678,10 +2709,21 @@ def gpt2_drive(model, config, compile, traffic, paged):
     torch.cuda.reset_peak_memory_stats()
     cls = PagedContinuousBatcher if paged else ContinuousBatcher
     b = cls(model, compile=compile, **config)
+    # the pool's gauges as the constructor set them (the windows reset the
+    # registry)
+    gauges = ({"kv_quant_enabled": reg.get("serving.kv_quant_enabled").value,
+               "kv_quant_bytes_saved":
+                   reg.get("serving.kv_quant_bytes_saved").value,
+               "pool_bytes": sum(t.numel() * t.element_size()
+                                 for layer in b._state["layers"]
+                                 for t in layer),
+               "pool_dtype": str(b._state["layers"][0][0].dtype)}
+              if paged else {})
     b.submit(warm, 8)
     b.run_until_done()
     fns = {name: getattr(b, f"_{name}_fn", None)
-           for name in ("step", "chunk", "fused", "block")}
+           for name in ("step", "chunk", "fused", "block", "chunk_dyn_first",
+                        "chunk_dyn_rest")}
     fns = {k: f for k, f in fns.items() if hasattr(f, "replays")}
     before = {k: (f.captures, f.replays) for k, f in fns.items()}
 
@@ -2712,6 +2754,7 @@ def gpt2_drive(model, config, compile, traffic, paged):
             "completed_requests": stats["completed_requests"],
             "decode_blocks": stats["decode_blocks"],
             "preemptions": stats["preemptions"],
+            "cachekv_clip_rate": stats["cachekv_clip_rate"],
             "admissions": series("serving_admissions_total").value,
             "step_ms_median":
                 series("serving_step_seconds").quantile(0.5) * 1e3,
@@ -2742,19 +2785,21 @@ def gpt2_drive(model, config, compile, traffic, paged):
                   k: (f.replays - before[k][1]) / GPT2_WINDOWS
                   for k, f in fns.items()},
               "window_captures": {k: f.captures - before[k][0]
-                                  for k, f in fns.items()}}
+                                  for k, f in fns.items()},
+              **gauges}
     if paged:
         report["pages_leaked"] = reg.get("serving.pages_leaked").value
         report["audit_pages"] = b.audit_pages()
     return seqs[0], report, b
 
 
-def gpt2_generate_checks(model, seed):
+def gpt2_generate_checks(model, seed, phase="gpt2_serve"):
     """generate at bench_decode's shape (8 x 256 prompt tokens, s_max 512,
     32 greedy new tokens) with the launch counts around it, its prefill
     and eager decode timed, then bench_decode's compiled decode step:
     to_static(decode_step, donate_args=(1,)), 4 warm and 32 timed steps,
-    its tokens equal to the eager step's from the same prefill."""
+    its tokens equal to the eager step's from the same prefill. Its record
+    carries `phase`."""
     from paddle_tpu_torch.jit import to_static
     from paddle_tpu_torch.ops.hopper import (KERNELS, launch_counts,
                                              reset_launch_counts)
@@ -2815,7 +2860,7 @@ def gpt2_generate_checks(model, seed):
         graphed_s = time.perf_counter() - t0
         graph = [step.captures, step.replays]
     same = all(torch.equal(a, g) for a, g in zip(eager_toks, graph_toks))
-    rec = {"phase": "gpt2_serve", "part": "generate", "batch": GPT2_BATCH,
+    rec = {"phase": phase, "part": "generate", "batch": GPT2_BATCH,
            "prompt": GPT2_CTX, "new_tokens": GPT2_NEW, "s_max": GPT2_S_MAX,
            "layers": layers, "dtype": "bfloat16", "generate_s": generate_s,
            "launches": launches, "prefill_ms": sorted(prefill_ms)[1],
@@ -3541,6 +3586,501 @@ def phase_gateway(seed):
 # records, whatever their timing, which emptied sessions of a few launches
 # (PERF.md, section 7): each session opens with this many spin kernels,
 # whose records are left out.
+# -- phase 4g ----------------------------------------------------------------
+
+# int8 serving. A: bench_decode's GPT-2 (GPT2_SERVE_CFG, bf16) with int8
+# weights (nn.quant.quantize_linear_layers, bench_decode's kv_cache_int8
+# arm; quantization.serving_quantize, bench_quant's weights arm) and int8
+# KV pages (static, calibrated on one [8, 256] batch; dynamic, per
+# request). B: Llama-2-7B Run A with calibrated int8 pages.
+QUANT_LOGIT_REL = 0.05       # int8 against bf16 prefill logits: the JAX
+                             # package's own bound (tests/test_quant_serving
+                             # .py:45-46, 131-132), held at GPT-2's 12 layers
+# At Llama-2-7B's 32 random layers bf16 itself lies ~6% from float32 and
+# int8 pages ~11% from float32 in float32 arithmetic (PERF.md), so 5% of
+# bf16 is out of reach; there int8 pages' logits are held within this many
+# times bf16's own distance from a float32 copy at the same prompt
+QUANT_LLAMA_NOISE = 3.0
+QUANT_CALIB_LEN = 512        # Llama's calibration prompt
+# serving_quantize's bound for the measured run: at its default (0.02)
+# every layer of the random-weight model falls back (probe errors
+# 2.3-4.8%), which the phase reports too
+QUANT_ERR_BOUND = 0.05
+
+
+def quant_code_check(run):
+    """Run `run()` with the paged attention's cache write watched: at its
+    first write with quant scales (layer 0 of the first prefill), the int8
+    codes it left in the pools are held, bit for bit, to clip(round(x * q),
+    -127, 127) of the K and V rows it was given, computed here on the
+    card. Returns (run's result, the check's record)."""
+    from paddle_tpu_torch.incubate.nn.functional import decode_attention
+    write, rec = decode_attention._scatter_paged, {}
+
+    def watched(kc, vc, bt, seq_of, pos, kt, vt, block_size, k_quant=None,
+                v_quant=None):
+        first = k_quant is not None and not rec
+        if first:
+            rows = [(kc, kt.clone(), k_quant.clone()),
+                    (vc, vt.clone(), v_quant.clone())]
+        write(kc, vc, bt, seq_of, pos, kt, vt, block_size, k_quant, v_quant)
+        if first:
+            blk = (pos // block_size).clamp(max=bt.shape[1] - 1)
+            phys, off = bt[seq_of, blk], pos % block_size
+            for name, (pool, x, q) in zip("kv", rows):
+                qs = q[seq_of][:, :, None] if q.dim() == 2 \
+                    else q[None, :, None]
+                want = torch.clamp(torch.round(x.float() * qs), -127,
+                                   127).to(torch.int8)
+                got = pool[phys, :, off]
+                rec[name] = {"rows": int(x.shape[0]),
+                             "scales": list(q.shape),
+                             "pool_dtype": str(pool.dtype),
+                             "differing_codes": int((got != want).sum()),
+                             "top_bin_share": float(
+                                 (want.abs() == 127).float().mean())}
+    decode_attention._scatter_paged = watched
+    try:
+        out = run()
+    finally:
+        decode_attention._scatter_paged = write
+    if not rec or any(r["differing_codes"] or r["pool_dtype"] !=
+                      "torch.int8" for r in rec.values()):
+        fail(f"int8 page codes differ from clip(round(x * q)) of their own "
+             f"rows, or no quantized write ran: {rec}")
+    return out, rec
+
+
+def logit_rel(got, ref):
+    """Largest |got - ref| over the largest |ref|."""
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+def quant_quality(what, got, ref):
+    rel = logit_rel(got, ref)
+    if not rel <= QUANT_LOGIT_REL:
+        fail(f"{what}: int8 last-position logits lie {rel} (relative to "
+             f"the largest bf16 logit) from bf16's, over {QUANT_LOGIT_REL}")
+    return rel
+
+
+def dynamic_reference(model, prompt, new, chunk, block):
+    """The dynamic int8 contract driven by hand, one request: its prompt in
+    `chunk`-token chunks (the first computing the scales from its valid
+    rows, the rest quantizing with them) into int8 pages, then greedy
+    paged decode steps with those scales in the state. Returns the full
+    sequence."""
+    from paddle_tpu_torch.models.generation import paged_state
+    dev = next(model.parameters()).device
+    L = len(prompt)
+    bps = -(-(L + new) // block)
+    bt = torch.arange(bps, dtype=torch.int32, device=dev)[None]
+    pool = model.paged_alloc(bps + 1, block, cache_dtype="int8")
+    padded = np.zeros(-(-L // chunk) * chunk, np.int64)
+    padded[:L] = prompt
+    scales, logits = None, None
+    with torch.no_grad():
+        for dec in range(0, len(padded), chunk):
+            at = (L - 1) - dec
+            args = (torch.from_numpy(padded[None, dec:dec + chunk]).to(dev),
+                    pool, bt, block)
+            kw = dict(dec_base=torch.tensor([dec], dtype=torch.int32,
+                                            device=dev),
+                      logits_at=torch.tensor([at if 0 <= at < chunk else 0],
+                                             dtype=torch.int32, device=dev))
+            if scales is None:
+                lg, _, scales = model.paged_prefill_into(
+                    *args, dynamic_cache_scales=True,
+                    dynamic_scale_valid=torch.tensor(
+                        [min(L - dec, chunk)], dtype=torch.int32,
+                        device=dev), **kw)
+            else:
+                lg, _ = model.paged_prefill_into(*args, cache_scales=scales,
+                                                 **kw)
+            if 0 <= at < chunk:
+                logits = lg
+        state = paged_state(pool, bt, 1, L, block, bps)
+        state["cache_scales"] = scales
+        toks = [int(logits.argmax(-1))]
+        for _ in range(new - 1):
+            lg, state = model.paged_decode_step(
+                torch.tensor([toks[-1]], device=dev), state)
+            toks.append(int(lg.argmax(-1)))
+    return np.concatenate([prompt, np.asarray(toks, np.int64)])
+
+
+def paged_generate_each(model, prompts, new):
+    """generate_paged of each prompt alone (batch 1, block 64): the model's
+    own paged route, which the batchers' tokens are held to."""
+    with torch.no_grad():
+        return [model.generate_paged(
+            torch.from_numpy(p[None]).cuda(), n, block_size=64)[0]
+            .cpu().numpy() for p, n in zip(prompts, new)]
+
+
+def token_match(a_seqs, b_seqs, lens):
+    """bench_quant.py:236-238's token-match rate: the mean over requests of
+    the share of generated positions where two runs agree."""
+    return float(np.mean([np.mean(a[n:] == b[n:])
+                          for a, b, n in zip(a_seqs, b_seqs, lens)]))
+
+
+def quant_gpt2(seed):
+    """Part A of phase_quant (its docstring). Returns the flash forward's
+    launches by run."""
+    import copy
+    from paddle_tpu_torch.models import GPT2Config, GPT2ForCausalLM
+    from paddle_tpu_torch.nn.quant import (WeightOnlyLinear,
+                                           quantize_linear_layers)
+    from paddle_tpu_torch.ops.hopper import (KERNELS, launch_counts,
+                                             reset_launch_counts)
+    from paddle_tpu_torch.quantization import serving_quantize
+    model = gpt2_serving_model(seed)
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    traffic = gpt2_traffic(seed, cfg.vocab_size)
+    lens = [len(p) for p in traffic[1]]
+    news = [GPT2_NEW] * len(lens)
+    counts, rec = {}, {"phase": "quant", "part": "gpt2"}
+    flash = dict.fromkeys(KERNELS, 0)
+    flash["flash_attention"] = layers
+
+    def drive(m, config, what):
+        captured = (("fused", "block") if config.get("fused_admission")
+                    else ("step", "chunk_dyn_first", "chunk_dyn_rest")
+                    if config.get("cache_quant") else ("step", "chunk"))
+        got, rep, b = gpt2_drive(m, config, True, traffic, True)
+        del b
+        torch.cuda.empty_cache()
+        emit({"phase": "quant", "run": what, "layers": layers, **rep})
+        if rep["completed_requests"] != len(lens) or \
+                not rep["windows_equal_tokens"] or rep["pages_leaked"] or \
+                rep["audit_pages"]:
+            fail(f"quant {what}: {rep['completed_requests']} requests "
+                 "completed, windows differ or pages leaked")
+        graphs = rep["graphs"]
+        if any(graphs.get(k, [0])[0] != 1 for k in captured) or any(
+                v[0] > 1 for v in graphs.values()) or any(
+                rep["window_captures"].values()):
+            fail(f"quant {what}: graphs {graphs}, expected one capture of "
+                 f"each of {captured}, in the warm-up")
+        if rep["launches"] != dict.fromkeys(KERNELS, 0):
+            fail(f"quant {what}: launches {rep['launches']}; the paged "
+                 "runs launch no kernel")
+        for p, o in zip(traffic[1], got):
+            if len(o) != len(p) + GPT2_NEW or not np.array_equal(
+                    o[:len(p)], p):
+                fail(f"quant {what} returned {len(o)} tokens for a prompt "
+                     f"of {len(p)}, or lost the prompt")
+        return got, rep
+
+    def held_to(what, ref32, got, against, spread):
+        diff = divergence(ref32, [(n, a, g) for n, a, g in zip(
+            lens, against, got)])
+        rec[f"{what}_vs_own_reference"] = {
+            "differing_tokens": diff[0], "tokens": sum(news),
+            "first_differences": diff[1], "pick_gap_limit": 2 * spread}
+        over = [r for r in diff[1] if r["gap"] > 2 * spread]
+        if over:
+            fail(f"quant {what}: picks differ from the same quantized "
+                 f"model's own route by more than twice the bf16 spread "
+                 f"{spread}: {over}")
+
+    ids = torch.randint(0, cfg.vocab_size, (GPT2_BATCH, GPT2_CTX),
+                        generator=torch.Generator().manual_seed(seed + 2)
+                        ).cuda()
+    with torch.no_grad():
+        # the bf16 model: its compiled decode step and paged run, and the
+        # prefill logits every int8 variant is held to
+        gen_bf16, held = gpt2_generate_checks(model, seed, phase="quant")
+        counts["generate bf16"] = gen_bf16
+        bf16_steps = held["timed"]["kv_cache_compiled_tokens_per_s"]
+        del held
+        bf16_dense = model.prefill(ids, GPT2_S_MAX)[0][:, -1]
+        bf16_paged = model.paged_prefill(ids, 64)[0]
+        seqs_bf16, rep_bf16 = drive(model, GPT2_PAGED, "paged bf16")
+        ref32 = GPT2ForCausalLM(GPT2Config(**dict(GPT2_SERVE_CFG,
+                                                  dtype="float32")),
+                                device="cuda").eval()
+        ref32.load_state_dict(model.state_dict())
+        spread, _, _ = bf16_spread(model, ref32, seqs_bf16, lens)
+        rec["bf16_spread"] = spread
+
+        # A1: weight-only int8 linears, bench_decode's kv_cache_int8 arm
+        wmodel = copy.deepcopy(model)
+        n_int8 = quantize_linear_layers(wmodel)
+        gen_int8, held = gpt2_generate_checks(wmodel, seed, phase="quant")
+        counts["generate weight-only int8"] = gen_int8
+        int8_bytes = sum(m.quant_weight.numel() for m in wmodel.modules()
+                         if isinstance(m, WeightOnlyLinear))
+        rec["weight_only_int8"] = {
+            "int8_linears": n_int8, "int8_weight_bytes": int8_bytes,
+            "kv_cache_int8_steps_per_s":
+                held["timed"]["kv_cache_compiled_steps_per_s"],
+            "kv_cache_int8_tokens_per_s":
+                held["timed"]["kv_cache_compiled_tokens_per_s"],
+            "bf16_kv_cache_compiled_tokens_per_s": bf16_steps,
+            "logit_rel": quant_quality(
+                "weight-only int8 prefill",
+                wmodel.prefill(ids, GPT2_S_MAX)[0][:, -1], bf16_dense)}
+        del wmodel, held
+        torch.cuda.empty_cache()
+
+        # A2: serving_quantize, bench_quant's weights arm: the decisions at
+        # the default bound, then the run at QUANT_ERR_BOUND
+        default = serving_quantize(model)._serving_quant_report
+        rec["serving_quantize_default_bound"] = {
+            k: default[k] for k in ("layers_quantized", "layers_fallback",
+                                    "bytes_saved", "err_bound")}
+        qmodel = serving_quantize(model, err_bound=QUANT_ERR_BOUND)
+        report = qmodel._serving_quant_report
+        qref32 = copy.deepcopy(qmodel).float()
+        seqs_q, rep_q = drive(qmodel, GPT2_PAGED, "paged int8 weights")
+        spread_q, _, _ = bf16_spread(qmodel, qref32, seqs_q, lens)
+        held_to("paged int8 weights", qref32, seqs_q,
+                paged_generate_each(qmodel, traffic[1], news), spread_q)
+        rec["serving_quantize"] = {
+            "layers_quantized": report["layers_quantized"],
+            "layers_fallback": report["layers_fallback"],
+            "bytes_saved": report["bytes_saved"],
+            "err_bound": report["err_bound"],
+            "max_rel_err": max(v["rel_err"]
+                               for v in report["layers"].values()),
+            "bf16_spread": spread_q,
+            "tokens_per_s": rep_q["tokens_per_s"],
+            "tpot_p50_ms": rep_q["step_ms_median"],
+            "bf16_tokens_per_s": rep_bf16["tokens_per_s"],
+            "bf16_tpot_p50_ms": rep_bf16["step_ms_median"],
+            "token_match": token_match(seqs_bf16, seqs_q, lens),
+            "logit_rel": quant_quality(
+                "serving_quantize prefill",
+                qmodel.prefill(ids, GPT2_S_MAX)[0][:, -1], bf16_dense)}
+        if report["layers_quantized"] < 1:
+            fail(f"serving_quantize quantized no layer: {report}")
+        del qmodel, qref32
+        torch.cuda.empty_cache()
+
+        # A3: static int8 pages, calibrated on one [8, 256] batch
+        reset_launch_counts()
+        model.calibrate_cachekv_int8(ids)
+        counts["calibrate"] = launch_counts()
+        if counts["calibrate"] != flash:
+            fail(f"GPT-2 calibration launches {counts['calibrate']}, "
+                 f"expected {flash}")
+        (int8_paged, _), codes = quant_code_check(
+            lambda: model.paged_prefill(ids, 64))
+        rec["static_pages"] = {
+            "codes": codes, "logit_rel": quant_quality(
+                "static int8 pages prefill", int8_paged, bf16_paged)}
+        runs = {}
+        for what, config in (
+                ("paged static int8 pages", dict(GPT2_PAGED,
+                                                 kv_quant="int8")),
+                ("fused block static int8 pages",
+                 dict(GPT2_FUSED, kv_quant="int8", decode_block=8))):
+            runs[what] = drive(model, config, what)
+            if runs[what][1]["pool_dtype"] != "torch.int8":
+                fail(f"quant {what}: a {runs[what][1]['pool_dtype']} pool")
+        own = paged_generate_each(model, traffic[1], news)
+        for what, (got, rep) in runs.items():
+            held_to(what, ref32, got, own, spread)
+            rec["static_pages"][what] = {
+                k: rep[k] for k in ("tokens_per_s", "step_ms_median",
+                                    "pool_bytes", "kv_quant_bytes_saved",
+                                    "kv_quant_enabled", "decode_blocks")}
+        rec["static_pages"]["bf16_pool_bytes"] = rep_bf16["pool_bytes"]
+        model.calibrate_cachekv_int8(None)
+
+        # A4: dynamic int8 pages, per request
+        dev_ids = torch.from_numpy(traffic[1][0][None, :64]).cuda()
+        _, codes = quant_code_check(lambda: model.paged_prefill_into(
+            dev_ids, model.paged_alloc(2, 64, cache_dtype="int8"),
+            torch.zeros(1, 1, dtype=torch.int32, device="cuda"), 64,
+            dynamic_cache_scales=True))
+        got, rep = drive(model, dict(GPT2_PAGED,
+                                     cache_quant="dynamic_int8"),
+                         "paged dynamic int8 pages")
+        if rep["pool_dtype"] != "torch.int8":
+            fail(f"quant dynamic pages: a {rep['pool_dtype']} pool")
+        held_to("paged dynamic int8 pages", ref32, got,
+                [dynamic_reference(model, p, n, 64, 64)
+                 for p, n in zip(traffic[1], news)], spread)
+        rec["dynamic_pages"] = {
+            "codes": codes, "tokens_per_s": rep["tokens_per_s"],
+            "step_ms_median": rep["step_ms_median"],
+            "pool_bytes": rep["pool_bytes"],
+            "cachekv_clip_rate": rep["cachekv_clip_rate"]}
+    emit(rec)
+    del model, ref32
+    torch.cuda.empty_cache()
+    return counts
+
+
+def quant_llama(seed, model, spread):
+    """Part B of phase_quant (its docstring). Returns the RMSNorm's
+    launches by run (graphed: the replays' included)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b_config
+    from paddle_tpu_torch.inference import PagedContinuousBatcher
+    from paddle_tpu_torch.ops.hopper import (KERNELS, launch_counts,
+                                             reset_launch_counts)
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    norms = 2 * layers + 1
+    traffic = batcher_traffic(seed, cfg.vocab_size)
+    rec, counts = {"phase": "quant", "part": "llama", "layers": layers}, {}
+    prompt = torch.randint(0, cfg.vocab_size, (1, QUANT_CALIB_LEN),
+                           generator=torch.Generator().manual_seed(seed + 3)
+                           ).cuda()
+
+    def split(config):
+        """A step's device ms by part (paged_step_split) with 4 requests
+        of 512 tokens admitted and 16 steps decoded, as paged_profile
+        measures Run A's."""
+        b = PagedContinuousBatcher(model, compile=False, **config)
+        rng = np.random.RandomState(0)
+        rids = [b.submit(rng.randint(0, cfg.vocab_size, 512), 64)
+                for _ in range(4)]
+        for _ in range(16):
+            b.step()
+        out = paged_step_split(b)
+        for rid in rids:
+            b.abort(rid)
+        b.audit_pages()
+        del b
+        torch.cuda.empty_cache()
+        return out
+
+    with torch.no_grad():
+        bf16_logits = model.paged_prefill(prompt, 64)[0]
+        rec["split_bf16"] = split(PAGED_A)
+        reset_launch_counts()
+        model.calibrate_cachekv_int8(prompt)
+        counts["calibrate"] = launch_counts()
+        expect = dict.fromkeys(KERNELS, 0)
+        expect["flash_attention"] = layers
+        expect["rms_norm"] = norms
+        if counts["calibrate"] != expect:
+            fail(f"Llama calibration launches {counts['calibrate']}, "
+                 f"expected {expect}")
+        (int8_logits, _), rec["codes"] = quant_code_check(
+            lambda: model.paged_prefill(prompt, 64))
+        scales = model._cachekv_scales
+        config = dict(PAGED_A, kv_quant="int8")
+        got, rep, b = paged_run(model, traffic, config, True)
+        pool = b._state["layers"]
+        rep["pool_dtype"] = str(pool[0][0].dtype)
+        rep["pool_bytes"] = sum(t.numel() * t.element_size()
+                                for layer in pool for t in layer)
+        rep["bf16_pool_bytes"] = sum(t.numel() * 2 for layer in pool
+                                     for t in layer)
+        del b, pool
+        torch.cuda.empty_cache()
+        graphs = rep["graphs"]
+        (step_c, step_r), (chunk_c, chunk_r) = (
+            graphs.get(g, (0, 0)) for g in ("step", "chunk"))
+        expect = dict.fromkeys(KERNELS, 0)
+        expect["rms_norm"] = norms * (rep["prefill_calls"] + 2 * step_c)
+        rep["launches"] = dict(rep["wrapper_counts"])
+        rep["launches"]["rms_norm"] += norms * (step_r - step_c
+                                                + chunk_r - chunk_c)
+        counts["A graphed int8 pages"] = rep["launches"]
+        emit({"phase": "quant", "run": "llama A graphed int8 pages",
+              "layers": layers, "requests": len(traffic), **rep})
+        for (p, n), o in zip(traffic, got):
+            if len(o) != len(p) + n or not np.array_equal(o[:len(p)], p):
+                fail(f"Llama int8 run returned {len(o)} tokens for a prompt "
+                     f"of {len(p)} and {n} new ones, or lost the prompt")
+        if rep["pool_dtype"] != "torch.int8" or rep["pages_leaked"] or \
+                rep["wrapper_counts"] != expect or step_c != 1 or \
+                step_r != rep["steps"] or chunk_c != 1 or \
+                rep["admissions"] < len(traffic):
+            fail(f"Llama int8 run: pool {rep['pool_dtype']}, leaked "
+                 f"{rep['pages_leaked']}, launches {rep['wrapper_counts']} "
+                 f"(graphs {graphs}), expected {expect} and one capture "
+                 "each")
+        rec["run"] = {k: rep[k] for k in ("wall_s", "tokens_per_s",
+                                          "decode_ms_per_step", "steps",
+                                          "tokens", "pool_bytes",
+                                          "bf16_pool_bytes",
+                                          "peak_memory_gib")}
+        rec["split_int8"] = split(PAGED_A)
+        # the same model's own paged route for 4 requests
+        own = paged_generate_each(model, [p for p, _ in traffic[:4]],
+                                  [n for _, n in traffic[:4]])
+        model.calibrate_cachekv_int8(None)
+    ref = LlamaForCausalLM(llama2_7b_config(), device="cuda")
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        f32_logits = ref.paged_prefill(prompt, 64)[0]
+        ref._cachekv_scales = scales
+        int8_f32_logits = ref.paged_prefill(prompt, 64)[0]
+        ref._cachekv_scales = None
+    rec["logits"] = {
+        "int8_vs_bf16": logit_rel(int8_logits, bf16_logits),
+        "bf16_vs_float32": logit_rel(bf16_logits, f32_logits),
+        "int8_in_float32_vs_float32": logit_rel(int8_f32_logits,
+                                                f32_logits),
+        "bound": QUANT_LLAMA_NOISE}
+    if not rec["logits"]["int8_vs_bf16"] <= QUANT_LLAMA_NOISE * \
+            rec["logits"]["bf16_vs_float32"]:
+        fail(f"Llama int8 pages: prefill logits {rec['logits']}: int8 lies "
+             f"more than {QUANT_LLAMA_NOISE}x bf16's own distance from "
+             "float32 from bf16")
+    if spread is None:
+        spread, _, _ = bf16_spread(model, ref, got[:4],
+                                   [len(p) for p, _ in traffic[:4]])
+    diff = divergence(ref, [(len(p), o, g) for (p, _), o, g in zip(
+        traffic[:4], own, got[:4])])
+    del ref
+    torch.cuda.empty_cache()
+    rec["vs_own_generate_paged"] = {
+        "differing_tokens": diff[0],
+        "tokens": sum(n for _, n in traffic[:4]),
+        "first_differences": diff[1], "pick_gap_limit": 2 * spread}
+    emit(rec)
+    over = [r for r in diff[1] if r["gap"] > 2 * spread]
+    if over:
+        fail(f"Llama int8 pages: batcher picks differ from the calibrated "
+             f"model's generate_paged by more than twice the bf16 spread "
+             f"{spread}: {over}")
+    return counts
+
+
+def phase_quant(seed, model=None, spread=None):
+    """Int8 serving on the port. A: bench_decode's GPT-2 (GPT2_SERVE_CFG,
+    bf16, gpt2_traffic's requests): generate and the compiled decode step
+    (8 x 256, s_max 512) in bf16 and with quantize_linear_layers' int8
+    linears; the paged batcher (GPT2_PAGED, graphed) in bf16 and with
+    serving_quantize's int8 weights; calibrate_cachekv_int8 on one [8, 256]
+    batch, then GPT2_PAGED with kv_quant="int8" and GPT2_FUSED with
+    decode_block=8; GPT2_PAGED with cache_quant="dynamic_int8" (64-token
+    chunks: every prompt takes the first-chunk and later-chunk calls). B:
+    Llama-2-7B (`model`, or serving_model(seed)): Run A's traffic through
+    PAGED_A with kv_quant="int8", graphed, after calibrate_cachekv_int8 on
+    one 512-token prompt, and a step's device ms by part beside bf16
+    pages'. Checks: the pools are int8 where asked; the codes one prefill
+    wrote (layer 0: static GPT-2 and Llama, dynamic GPT-2) equal
+    clip(round(x * q)) of its own rows on the card, bit for bit; GPT-2's
+    int8 pages' and int8 weights' last-position prefill logits within 5% of
+    the largest bf16 one at the same rows (Llama's int8 pages' within
+    QUANT_LLAMA_NOISE times bf16's own distance from a float32 copy); each
+    quantized batcher's tokens
+    against the same quantized model's own route (generate_paged, or by
+    hand for dynamic pages; A1's graphed decode against its eager one,
+    exactly) within twice the run's bf16 spread (`spread`: the paged
+    phase's, for Llama); the flash forward launched by the calibrations
+    and generates, the RMSNorm kernel by Llama's run. Returns each run's
+    launches."""
+    t0 = time.perf_counter()
+    counts = {"gpt2": quant_gpt2(seed)}
+    if model is None:
+        model = serving_model(seed)
+    counts["llama"] = quant_llama(seed, model, spread)
+    emit({"phase": "quant", "phase_s": time.perf_counter() - t0})
+    return counts
+
+
 PROFILE_PAD = 32
 
 
@@ -3728,6 +4268,10 @@ def csr_window(s, heads, width):
         a.astype(np.int32), (1, heads, a.size))) for a in (offs, cols))
 
 
+# sessions the sparse phase's profile may take (see phase_sparse)
+SPARSE_PROFILE_SESSIONS = 3
+
+
 def phase_sparse(seed):
     """F.sparse_attention at BERT-base width (bert_base_config: 12 heads x
     64) and BigBird-base length (4096 tokens) in bf16, from an int32 CSR of
@@ -3805,11 +4349,18 @@ def phase_sparse(seed):
     if launch_counts()["block_sparse_attention"] != 5:
         fail(f"sparse: {launch_counts()} launches over 5 calls")
     # three calls in one session: the check rests on more than one trace
-    # record, and the first calls' kernels lie well inside the window
-    reset_launch_counts()
-    with torch.no_grad():
-        prof = profile_one(lambda: FE.sparse_attention(q, k, v, offs, cols),
-                           calls=3)
+    # record, and the first calls' kernels lie well inside the window. A
+    # session this late in the process may come back with no device
+    # record at all (PERF.md); the calls have no side effects, so such a
+    # session is run again, up to twice, its launches counted afresh
+    for session in range(1, SPARSE_PROFILE_SESSIONS + 1):
+        reset_launch_counts()
+        with torch.no_grad():
+            prof = profile_one(
+                lambda: FE.sparse_attention(q, k, v, offs, cols), calls=3)
+        if prof["device_ms"] != "not measured":
+            break
+    rec["profile_sessions"] = session
     if launch_counts()["block_sparse_attention"] != 3 or \
             prof["block_sparse_kernels"] != ["block_sparse_fwd_wgmma"]:
         fail(f"sparse kernels {prof['block_sparse_kernels']} over "
@@ -4050,6 +4601,7 @@ def main(argv=None):
     batcher, dense_tokens = phase_batcher(args.seed, model)
     paged, spread, run_a = phase_paged(args.seed, model, dense_tokens)
     fused = phase_fused(args.seed, model, spread, run_a)
+    quant = phase_quant(args.seed, model, spread)
     del model, dense_tokens, run_a
     torch.cuda.empty_cache()
     gpt2_serve = phase_gpt2_serve(args.seed)
@@ -4098,6 +4650,14 @@ def main(argv=None):
             # paged runs launch no kernel)
             k["launches_per_gpt2_serving"] = {
                 m: c[name] for m, c in gpt2_serve.items()}
+        quant_runs = {f"{part} {run}": c[name]
+                      for part, runs in quant.items()
+                      for run, c in runs.items() if c[name]}
+        if quant_runs:
+            # int8 serving: GPT-2's calibration and generates (the flash
+            # forward), Llama's calibration and int8-page Run A (graphed:
+            # the replays' RMSNorm launches included)
+            k["launches_per_quant_run"] = quant_runs
         if any(gateway[name].values()):
             # per gateway window of 12 requests over two graphed dense
             # replicas, by policy, and in the failover run

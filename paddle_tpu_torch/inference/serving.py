@@ -14,17 +14,20 @@ shape, and with ``compile=True`` one CUDA graph serves every step.
 
 The paged batcher keeps one page pool instead: admission and preemption
 move pages, not tensors, and a radix prefix cache can share a prompt's
-pages across requests (``PagedContinuousBatcher``'s docstring).
+pages across requests (``PagedContinuousBatcher``'s docstring). Its pool
+may hold int8 pages, with calibrated static scales (``kv_quant="int8"``)
+or per-request dynamic ones (``cache_quant="dynamic_int8"``).
 
-Not ported yet: the paged batcher's int8 pages, host and disk tiers with
-promotion, sessions and speculative decode; the tensor-parallel shard
-group.
+Not ported yet: the paged batcher's host and disk tiers with promotion
+(and their ``tier_quant``), sessions and speculative decode; the
+tensor-parallel shard group.
 """
 from __future__ import annotations
 
 import os as _os
 import threading
 import time as _time
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -45,6 +48,9 @@ from ..resilience.recovery import (DeadlineExceeded, HealthStateMachine,
 from .prefix_cache import RadixPrefixCache
 
 __all__ = ["ContinuousBatcher", "PagedContinuousBatcher", "Request"]
+
+# a layer's dynamic int8 scales, in the order the batcher stores them
+_SCALE_KEYS = ("kq", "vq", "kdq", "vdq")
 
 
 @dataclass
@@ -125,6 +131,9 @@ class _ServingStats:
         self.occupancy_sum = 0
         self.completed = 0
         self.preempted = 0
+        self.cachekv_elems = 0
+        self.cachekv_clipped = 0
+        self.warned_cachekv_clip = False
         self.decode_blocks = 0
         self.shed = 0
         self.expired = 0
@@ -180,6 +189,10 @@ class _ServingStats:
         self.expired += 1
         self.expired_c.inc()
 
+    def on_cachekv(self, clipped: int, total: int):
+        self.cachekv_elems += total
+        self.cachekv_clipped += clipped
+
     def set_gauges(self, pending: int, active: int):
         self.queue_depth.set(pending)
         self.active_slots.set(active)
@@ -200,8 +213,8 @@ class _ServingStats:
             "pending_now": pending,
             "active_now": active,
             "elapsed_s": dt,
-            # int8 caches are not ported
-            "cachekv_clip_rate": 0.0,
+            "cachekv_clip_rate": (self.cachekv_clipped
+                                  / max(self.cachekv_elems, 1)),
             "decode_blocks": self.decode_blocks,
             "requests_shed": self.shed,
             "deadline_expired": self.expired,
@@ -254,6 +267,24 @@ class _BatcherBase:
         queue depth right now."""
         return self._tele.snapshot(self.max_batch, len(self._pending),
                                    len(self._slot_req))
+
+    # the saturation counters of dynamic int8 pages, under the JAX
+    # package's names
+    @property
+    def _stat_cachekv_elems(self) -> int:
+        return self._tele.cachekv_elems
+
+    @property
+    def _stat_cachekv_clipped(self) -> int:
+        return self._tele.cachekv_clipped
+
+    @property
+    def _warned_cachekv_clip(self) -> bool:
+        return self._tele.warned_cachekv_clip
+
+    @_warned_cachekv_clip.setter
+    def _warned_cachekv_clip(self, v: bool):
+        self._tele.warned_cachekv_clip = v
 
     @staticmethod
     def _check_window(cfg, s_max: int):
@@ -761,6 +792,22 @@ class PagedContinuousBatcher(_BatcherBase):
     prompt_buckets: the ladder the (suffix) prefill pads onto
     (``perf.buckets`` spec; None keeps exact lengths).
 
+    kv_quant="int8": the pool holds int8 pages quantized with the model's
+    static per-head scales (``model.calibrate_cachekv_int8`` first; a
+    calibrated model allocates int8 pages either way, and this option
+    makes the contract explicit). cache_quant="dynamic_int8": int8 pages
+    with per-request scales, computed by each prompt's prefill (with
+    ``prefill_chunk``, by its first chunk, whose pad tail is kept out of
+    the statistics; later chunks and decode quantize with them) and kept in
+    one fixed device tensor per (slot, head) that the host overwrites on
+    admission and release. Later chunks' rows above the first chunk's amax
+    saturate: ``stats()["cachekv_clip_rate"]`` samples the top-bin share
+    of each long prompt's last chunk, and one ``RuntimeWarning`` fires
+    when it exceeds max(1%, 3 x the first chunk's). The gauges
+    ``serving.kv_quant_enabled`` and ``serving.kv_quant_bytes_saved`` say
+    whether the pool is int8 and what that saves against the model's
+    parameter type.
+
     fused_admission (needs ``prefill_chunk``): admission reserves the
     prompt's pages in a row of its own and streams the prompt one chunk a
     step through ``paged_fused_step``, beside every decoding slot's token,
@@ -777,7 +824,8 @@ class PagedContinuousBatcher(_BatcherBase):
     compile: capture as CUDA graphs (``jit.to_static``, the pools donated)
     and replay the decode step, the fused step, the K-step block and the
     fixed-width chunk (at most two: the full width and a tail shortened at
-    the capacity); it needs a model on the card, and ``compile=False`` runs
+    the capacity; with dynamic int8, a first chunk and a later chunk); it
+    needs a model on the card, and ``compile=False`` runs
     them eagerly on either device. Whole-prompt and ladder prefills stay
     eager: each length or rung would be a graph of its own. do_sample /
     temperature / top_k / top_p / seed: the host token pick.
@@ -785,10 +833,9 @@ class PagedContinuousBatcher(_BatcherBase):
     the deadline of requests submitted without one.
 
     Not ported yet, each raising ``NotImplementedError`` that names its
-    ROADMAP.md item when set: ``cache_quant``, ``kv_quant`` and
-    ``tier_quant`` (queue 1, item 1.3); ``host_kv_gib``, ``disk_kv_dir``
-    and ``session_store`` (item 1.4); ``draft_model``, speculative decode
-    and its failover (item 1.5).
+    ROADMAP.md item when set: ``tier_quant``, ``host_kv_gib``,
+    ``disk_kv_dir`` and ``session_store`` (queue 1, item 1.4);
+    ``draft_model``, speculative decode and its failover (item 1.5).
     """
 
     _engine = "paged"
@@ -841,6 +888,47 @@ class PagedContinuousBatcher(_BatcherBase):
                                  "(do_sample=False)")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
+        if cache_quant not in (None, "dynamic_int8"):
+            raise ValueError(f"unknown cache_quant {cache_quant!r} "
+                             f"(use None or 'dynamic_int8'; static int8 "
+                             f"comes from model.calibrate_cachekv_int8)")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"unknown kv_quant {kv_quant!r} "
+                             f"(use None or 'int8')")
+        if kv_quant:
+            if cache_quant:
+                raise ValueError(
+                    "kv_quant='int8' (static calibrated pages) and "
+                    "cache_quant (dynamic per-request scales) are two "
+                    "quantizers for the same pool; pick one")
+            if getattr(model, "_cachekv_scales", None) is None:
+                raise ValueError(
+                    "kv_quant='int8' needs static per-head cache scales: "
+                    "run model.calibrate_cachekv_int8(sample_ids) before "
+                    "constructing the batcher")
+            if draft_model is not None:
+                raise ValueError(
+                    "kv_quant is not supported with draft_model (the "
+                    "draft pool would need its own calibration pass)")
+        if tier_quant not in (None, "int8"):
+            raise ValueError(f"unknown tier_quant {tier_quant!r} "
+                             f"(use None or 'int8')")
+        if tier_quant:
+            if not prefix_cache:
+                raise ValueError(
+                    "tier_quant quantizes demoted host/disk tier blobs — "
+                    "it needs prefix_cache=True (with a host tier)")
+            if getattr(model, "_cachekv_scales", None) is not None:
+                raise ValueError(
+                    "tier_quant is redundant with calibrated int8 pages: "
+                    "an int8 pool already spills int8 blobs natively "
+                    "(and re-quantizing int8 codes would lose bits)")
+        if cache_quant and prefill_chunk == 1:
+            # a 1-token first chunk is decode-shaped: the attention's
+            # scale opt-in guard would refuse it at the first admission
+            raise ValueError("cache_quant='dynamic_int8' needs "
+                             "prefill_chunk >= 2 (a 1-token chunk is "
+                             "indistinguishable from a decode step)")
         if fused_admission and not prefill_chunk:
             raise ValueError("fused_admission needs prefill_chunk (the "
                              "chunk width of the fused executable)")
@@ -860,9 +948,7 @@ class PagedContinuousBatcher(_BatcherBase):
                     f"fused_admission needs the slot capacity ({cap}) to "
                     f"be a multiple of prefill_chunk ({prefill_chunk})")
         # each option with the ROADMAP.md queue 1 item that ports it
-        waiting = {"cache_quant": (cache_quant, "1.3"),
-                   "kv_quant": (kv_quant, "1.3"),
-                   "tier_quant": (tier_quant, "1.3"),
+        waiting = {"tier_quant": (tier_quant, "1.4"),
                    "draft_model": (draft_model, "1.5"),
                    "host_kv_gib": (host_kv_gib, "1.4"),
                    "disk_kv_dir": (disk_kv_dir, "1.4"),
@@ -941,15 +1027,53 @@ class PagedContinuousBatcher(_BatcherBase):
             "serving.pages_leaked",
             "pages unaccounted for by free-list + block tables + prefix "
             "cache (an OOM-much-later bug if ever nonzero)")
+        self._kv_quant_g = reg.gauge(
+            "serving.kv_quant_enabled",
+            "1 when the paged KV pool stores int8 pages (static "
+            "calibrated scales), else 0")
+        self._kv_quant_saved_g = reg.gauge(
+            "serving.kv_quant_bytes_saved",
+            "pool bytes saved by int8 KV pages vs the model fp dtype")
+
+        self.cache_quant = cache_quant
+        self.kv_quant = kv_quant
+        pool = model.paged_alloc(n_pages + 1, block_size,
+                                 cache_dtype="int8" if cache_quant else None)
+        # a calibrated model allocates int8 pages with or without
+        # kv_quant: the gauges report the pool as allocated
+        pool_int8 = pool[0][0].dtype == torch.int8
+        self._kv_quant_g.set(1 if pool_int8 else 0)
+        if pool_int8:
+            # the float item size from the model's parameters (numpy, which
+            # the JAX package asks, has no bfloat16)
+            fp_itemsize = next(model.parameters()).element_size()
+            elems = sum(kc.numel() + vc.numel() for kc, vc in pool)
+            self._kv_quant_saved_g.set(elems * max(0, fp_itemsize - 1))
 
         # the device state: one tensor each for the block table, the
         # timelines and the last tokens, which the host overwrites before
         # every step, so the captured step's donated leaves never move
-        self._state = paged_state(
-            model.paged_alloc(n_pages + 1, block_size),
-            self._to_device(self._bt), max_batch, 0, block_size,
-            self.blocks_per_seq)
+        self._state = paged_state(pool, self._to_device(self._bt),
+                                  max_batch, 0, block_size,
+                                  self.blocks_per_seq)
         self._tok_dev = self._to_device(self._last_tok)
+        if cache_quant:
+            # per-(slot, kv-head) dynamic scales, host-owned like the block
+            # table ([L, 4, B, KV]: kq, vq, kdq, vdq; ones while a slot is
+            # free), each admission's prefill filling its slot's rows. The
+            # state holds views of one device copy, which _sync_tables
+            # overwrites, so a captured step keeps its leaves.
+            cfg = model.config
+            kvh = getattr(cfg, "num_key_value_heads", None) \
+                or cfg.num_attention_heads
+            self._scales_host = np.ones(
+                (cfg.num_hidden_layers, 4, max_batch, kvh), np.float32)
+            self._scales_np = [dict(zip(_SCALE_KEYS, layer))
+                               for layer in self._scales_host]
+            self._scales_dev = self._to_device(self._scales_host)
+            self._state["cache_scales"] = [dict(zip(_SCALE_KEYS, layer))
+                                           for layer in self._scales_dev]
+            self._scales_dirty = False
 
         def static(fn, donate):
             return to_static(fn, donate_args=(donate,)) if compile else fn
@@ -966,6 +1090,24 @@ class PagedContinuousBatcher(_BatcherBase):
                     ids, layers, bt_row, block_size, dec_base=dec,
                     logits_at=at)
             self._chunk_fn = static(_chunk, 1)
+            if cache_quant:
+                # dynamic int8 with chunks: two fixed-width calls, the first
+                # chunk computing the sequence's scales (its pad tail kept
+                # out of the statistics by nvalid) and returning them, the
+                # later ones quantizing with them, so every row of the
+                # timeline has one scale set
+                def _chunk_dyn_first(ids, layers, bt_row, dec, at, nvalid):
+                    return model.paged_prefill_into(
+                        ids, layers, bt_row, block_size, dec_base=dec,
+                        logits_at=at, dynamic_cache_scales=True,
+                        dynamic_scale_valid=nvalid)
+
+                def _chunk_dyn_rest(ids, layers, bt_row, dec, at, scales):
+                    return model.paged_prefill_into(
+                        ids, layers, bt_row, block_size, dec_base=dec,
+                        logits_at=at, cache_scales=scales)
+                self._chunk_dyn_first_fn = static(_chunk_dyn_first, 1)
+                self._chunk_dyn_rest_fn = static(_chunk_dyn_rest, 1)
         if fused_admission:
             # the admission chunk's inputs: device tensors the host
             # overwrites before each fused call (the idle values when no
@@ -1058,6 +1200,9 @@ class PagedContinuousBatcher(_BatcherBase):
                 keep = {n.page for n in nodes}
         self._release_row(self._bt[slot], keep)
         self._dec[slot] = 0
+        if self.cache_quant:
+            self._scales_host[:, :, slot] = 1.0
+            self._scales_dirty = True
         self._free_slots.append(slot)
         self._admit_order.remove(slot)
         self.audit_pages()
@@ -1192,7 +1337,13 @@ class PagedContinuousBatcher(_BatcherBase):
             with torch.no_grad():
                 if self.prefill_chunk:
                     logits = self._prefill_chunked(ids_np[m_rows:], bt_row,
-                                                   dec0=m_rows)
+                                                   slot, dec0=m_rows)
+                elif self.cache_quant:
+                    logits, _, seq_scales = self.model.paged_prefill_into(
+                        self._to_device(ids_np[None, :]),
+                        self._state["layers"], bt_row, self.block_size,
+                        dynamic_cache_scales=True)
+                    self._store_slot_scales(slot, seq_scales)
                 elif m_rows or self._prompt_ladder is not None:
                     # suffix prefill: S real tokens appended after the
                     # m_rows cached rows, padded up to the rung (pad rows
@@ -1241,14 +1392,21 @@ class PagedContinuousBatcher(_BatcherBase):
                 finished.append(req.rid)
         return finished
 
-    def _prefill_chunked(self, ids_np, bt_row, dec0: int = 0):
+    def _prefill_chunked(self, ids_np, bt_row, slot, dec0: int = 0):
         """Feed ``ids_np`` through fixed-width append chunks after ``dec0``
         rows already in the slot's pages (a cached prefix), one
         ``_chunk_fn`` call (a graph replay with ``compile=True``) a chunk.
         The tail chunk is zero-padded, and shortened at the slot's
         capacity; pad rows land past the true timeline and decode
         overwrites them before any read reaches them. Returns the last real
-        position's logits [1, V]."""
+        position's logits [1, V].
+
+        Dynamic int8 (``cache_quant``): the first chunk computes the
+        sequence's per-head scales from its valid rows and returns them;
+        every later chunk, and decode, quantizes with them (a prompt within
+        one chunk is the unchunked dynamic path exactly). The slot's scale
+        rows are stored after the last chunk, and the saturation of a long
+        prompt's last chunk is sampled against the first's."""
         C = self.prefill_chunk
         L = len(ids_np)
         cap = self.blocks_per_seq * self.block_size
@@ -1257,27 +1415,113 @@ class PagedContinuousBatcher(_BatcherBase):
         padded[0, :L] = ids_np
         dec = 0
         logits = None
+        scales = None
+        last_rest = None          # (dec, nvalid) of the last later chunk
+        first_nvalid = 0          # valid rows of the scale-setting chunk
         while dec < padded_len:
             w = min(C, padded_len - dec)     # the tail shortens at capacity
             has_last = 0 <= (L - 1) - dec < w
             # a copy, so the ids keep one layout (a captured graph keys
             # its inputs' strides) whatever the prompt's length
-            lg, _ = self._chunk_fn(
-                self._to_device(padded[:, dec:dec + w].copy()),
-                self._state["layers"], bt_row,
-                self._to_device(np.array([dec0 + dec], np.int32)),
-                self._to_device(np.array(
-                    [(L - 1) - dec if has_last else 0], np.int32)))
+            args = (self._to_device(padded[:, dec:dec + w].copy()),
+                    self._state["layers"], bt_row,
+                    self._to_device(np.array([dec0 + dec], np.int32)),
+                    self._to_device(np.array(
+                        [(L - 1) - dec if has_last else 0], np.int32)))
+            if not self.cache_quant:
+                lg, _ = self._chunk_fn(*args)
+            elif scales is None:
+                first_nvalid = min(L - dec, w)
+                lg, _, scales = self._chunk_dyn_first_fn(
+                    *args, self._to_device(np.array([first_nvalid],
+                                                    np.int32)))
+            else:
+                lg, _ = self._chunk_dyn_rest_fn(*args, scales)
+                if L - dec > 0:
+                    last_rest = (dec, min(L - dec, w))
             if has_last:
                 logits = lg
             dec += w
+        if scales is not None:
+            if last_rest is not None:
+                # sampled: one read of the scale-setting chunk (the
+                # baseline), one of the last later chunk
+                base = self._topbin_counts(bt_row, 0, first_nvalid)
+                self._record_chunk_saturation(
+                    bt_row, last_rest[0], last_rest[1],
+                    baseline=None if base is None
+                    else base[0] / max(base[1], 1))
+            self._store_slot_scales(slot, scales)
         return logits
+
+    def _topbin_counts(self, bt_row, dec, nvalid):
+        """(top-bin entries, entries) over the int8 K/V rows at positions
+        [dec, dec + nvalid) of a block-table row ``[1, bps]``, over every
+        layer, or None when the pool is not int8. |code| >= 127 is a proxy:
+        a saturated value and one within ~0.4% of the amax both land in the
+        top bin, which is why the warning compares against a baseline. One
+        read to the host: it syncs, so it runs outside every graph."""
+        if nvalid <= 0:
+            return None
+        bt = np.asarray(bt_row.cpu() if torch.is_tensor(bt_row)
+                        else bt_row)[0]
+        pos = np.arange(dec, dec + nvalid)
+        phys = torch.from_numpy(bt[pos // self.block_size].astype(np.int64))
+        off = torch.from_numpy(pos % self.block_size)
+        clipped, total = 0, 0
+        for kc, vc in self._state["layers"]:
+            for pool in (kc, vc):
+                if pool.dtype != torch.int8:
+                    return None
+                rows = pool[phys.to(pool.device), :, off.to(pool.device)]
+                clipped = clipped + (rows.to(torch.int32).abs()
+                                     >= 127).sum()
+                total += rows.numel()
+        return int(clipped), total
+
+    def _record_chunk_saturation(self, bt_row, dec, nvalid, baseline=None):
+        """Saturation telemetry of dynamic int8 with chunks: later chunks
+        quantize with the first chunk's scales, so values above its amax
+        clip at +/-127 with no other trace. Adds the top-bin count of rows
+        [dec, dec + nvalid) to ``stats()["cachekv_clip_rate"]`` and warns
+        once when the share exceeds max(1%, 3 x ``baseline``, the first
+        chunk's own share: a peaked distribution is not saturation)."""
+        counts = self._topbin_counts(bt_row, dec, nvalid)
+        if counts is None:
+            return
+        clipped, total = counts
+        self._tele.on_cachekv(clipped, total)
+        rate = clipped / max(total, 1)
+        threshold = max(0.01, 3.0 * (baseline or 0.0))
+        if rate > threshold and not self._tele.warned_cachekv_clip:
+            self._tele.warned_cachekv_clip = True
+            warnings.warn(
+                f"cachekv-int8 chunked prefill: {rate:.1%} of a later "
+                f"chunk's K/V entries sit in the top quantization bin "
+                f"(baseline {0.0 if baseline is None else baseline:.1%}) "
+                f"— values likely exceed the first-chunk scales "
+                f"(documented first-window semantics); long-prompt "
+                f"accuracy may degrade. stats()['cachekv_clip_rate'] "
+                f"tracks the sampled rate.",
+                RuntimeWarning, stacklevel=2)
+
+    def _store_slot_scales(self, slot, seq_scales):
+        """Copy a one-sequence prefill's per-layer scale dicts into the
+        slot's host rows (the decode step reads their device copy)."""
+        self._scales_host[:, :, slot] = torch.stack([
+            torch.stack([sc[k][0] for k in _SCALE_KEYS])
+            for sc in seq_scales]).cpu().numpy()
+        self._scales_dirty = True
 
     def _sync_tables(self):
         """Copy the host's block table and timelines into the state's own
         device tensors (the captured step's donated leaves)."""
         self._state["block_tables"].copy_(torch.from_numpy(self._bt))
         self._state["dec_lens"].copy_(torch.from_numpy(self._dec))
+        if self.cache_quant and self._scales_dirty:
+            # scales change only at admission and release
+            self._scales_dev.copy_(torch.from_numpy(self._scales_host))
+            self._scales_dirty = False
 
     def _preempt_latest(self, protect: int) -> bool:
         """Evict the most recently admitted active request (not

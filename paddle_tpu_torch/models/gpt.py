@@ -29,8 +29,10 @@ code in the JAX package. Serving applies dropout as the JAX package does,
 only while the model trains: serve in eval mode, where nothing draws from
 the model's generators. Positions past the ``wpe`` table are clamped to
 its last row where the JAX package's gather clamps them (chunk pad rows,
-decode past the table). Not ported yet: int8 caches, speculative decode
-(``logits_all``).
+decode past the table). Int8 KV pages, static (``calibrate_cachekv_int8``)
+and dynamic (``paged_prefill_into(dynamic_cache_scales=True)``,
+``state["cache_scales"]``), work as Llama's do. Not ported yet:
+speculative decode (``logits_all``).
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ from torch import nn
 
 from ..device import default_device, to_torch_dtype
 from ..incubate.nn.functional.decode_attention import (
-    block_multihead_attention, masked_multihead_attention)
+    block_multihead_attention, cachekv_scale_kwargs, cachekv_scales_from_dense,
+    masked_multihead_attention)
 from ..nn import functional as F
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
 from . import generation
@@ -149,15 +152,18 @@ class GPT2Block(nn.Module):
             self.attn.c_proj(out.reshape(b, 1, -1)))
         return hidden + self.mlp(self.ln_2(hidden))
 
-    def paged(self, hidden, kc, vc, enc, dec, this, cu, bt, block_size):
+    def paged(self, hidden, kc, vc, enc, dec, this, cu, bt, block_size,
+              **quant):
         """One block over packed tokens [T, E] through a page pool:
         ``block_multihead_attention`` (the pools written in place; ``cu``
-        the packing, read on the host), then the MLP. Returns hidden'."""
-        out, _, _, _ = block_multihead_attention(
+        the packing, read on the host; ``quant`` its int8 arguments), then
+        the MLP. Returns (hidden', the scales it computed or None)."""
+        res = block_multihead_attention(
             self.attn.c_attn(self.ln_1(hidden)), kc, vc, enc, dec, this,
-            None, None, cu, cu, bt, block_size=block_size)
-        hidden = hidden + self.attn.resid_dropout(self.attn.c_proj(out))
-        return hidden + self.mlp(self.ln_2(hidden))
+            None, None, cu, cu, bt, block_size=block_size, **quant)
+        hidden = hidden + self.attn.resid_dropout(self.attn.c_proj(res[0]))
+        return (hidden + self.mlp(self.ln_2(hidden)),
+                res[4] if len(res) > 4 else None)
 
 
 class GPT2Model(nn.Module):
@@ -337,19 +343,34 @@ class GPT2ForCausalLM(nn.Module):
 
     def paged_alloc(self, n_pages, block_size=64, cache_dtype=None):
         """The physical page pool: per layer, ``(kc, vc)`` of
-        ``[n_pages, H, block_size, D]`` zeros in the model's type on the
-        model's device."""
+        ``[n_pages, H, block_size, D]`` zeros on the model's device: int8
+        after ``calibrate_cachekv_int8``, else the model's type;
+        ``cache_dtype`` overrides (the dynamic int8 callers pass
+        ``"int8"``)."""
         cfg = self.config
-        dtype = to_torch_dtype(cache_dtype or cfg.dtype)
-        if dtype == torch.int8:
-            raise NotImplementedError(
-                "int8 KV pages are not ported yet (ROADMAP, queue 1, "
-                "item 3: int8 caches)")
+        dtype = to_torch_dtype(cache_dtype or (
+            "int8" if self._cachekv_scales is not None else cfg.dtype))
         shape = (n_pages, cfg.num_attention_heads, block_size, cfg.head_dim)
         device = self.transformer.wte.weight.device
         return [(torch.zeros(shape, dtype=dtype, device=device),
                  torch.zeros(shape, dtype=dtype, device=device))
                 for _ in range(cfg.num_hidden_layers)]
+
+    # per-layer static int8 scale dicts (calibrate_cachekv_int8), or None
+    _cachekv_scales = None
+
+    @torch.no_grad()
+    def calibrate_cachekv_int8(self, sample_ids):
+        """Static per-head int8 cache scales from a calibration batch
+        ``[B, s]`` (Llama's method: the dense prefill, which runs the flash
+        forward on the card, then each layer's |K| and |V| amax per head).
+        Returns the per-layer scale dicts; ``None`` disables them."""
+        if sample_ids is None:
+            self._cachekv_scales = None
+            return None
+        _, caches, _ = self.prefill(sample_ids, sample_ids.shape[1])
+        self._cachekv_scales = cachekv_scales_from_dense(caches)
+        return self._cachekv_scales
 
     @torch.no_grad()
     def paged_prefill_into(self, input_ids, layers, block_tables,
@@ -367,19 +388,22 @@ class GPT2ForCausalLM(nn.Module):
         ``dec_base + local`` (clamped to the ``wpe`` table: a chunk's pad
         rows may run past it).
 
-        Not ported: the int8 pools (``dynamic_cache_scales``,
-        ``cache_scales``, ``dynamic_scale_valid``) and speculative verify
-        (``logits_all``); they raise ``NotImplementedError``."""
-        if dynamic_cache_scales or cache_scales is not None \
-                or dynamic_scale_valid is not None:
-            raise NotImplementedError(
-                "int8 KV pages are not ported yet (ROADMAP, queue 1, "
-                "item 3: int8 caches)")
+        Int8 pages as Llama's ``paged_prefill_into``: static scales when
+        calibrated; ``dynamic_cache_scales=True`` returns the per-layer
+        ``[B, H]`` scale dicts it computed as a third element
+        (``dynamic_scale_valid`` masks a pad tail out of them);
+        ``cache_scales`` quantizes with a first chunk's.
+
+        Not ported: speculative verify (``logits_all``), which raises
+        ``NotImplementedError``."""
+        if dynamic_cache_scales and cache_scales is not None:
+            raise ValueError("dynamic_cache_scales computes scales; "
+                             "cache_scales consumes them — pass one")
         if logits_all:
             raise NotImplementedError(
                 "paged_prefill_into(logits_all=True) is speculative "
                 "decode's verify pass, not ported yet (ROADMAP, queue 1, "
-                "item 3)")
+                "item 1.5)")
         b, s = input_ids.shape
         dev = input_ids.device
 
@@ -396,9 +420,22 @@ class GPT2ForCausalLM(nn.Module):
         tr = self.transformer
         hidden = tr.embed(input_ids.reshape(b * s), pos.reshape(b * s))
         layers_state = []
-        for block, (kc, vc) in zip(tr.h, layers):
-            hidden = block.paged(hidden, kc, vc, enc, dec, ints(s), cu_q,
-                                 block_tables, block_size)
+        scales_out = [] if dynamic_cache_scales else None
+        for li, (block, (kc, vc)) in enumerate(zip(tr.h, layers)):
+            if dynamic_cache_scales:
+                extra = dict(use_dynamic_cachekv_quant=True,
+                             compute_dynamic_scales=True,
+                             dynamic_scale_valid=dynamic_scale_valid)
+            else:
+                extra = cachekv_scale_kwargs(
+                    cache_scales if cache_scales is not None
+                    else self._cachekv_scales, li)
+            hidden, sc = block.paged(hidden, kc, vc, enc, dec, ints(s),
+                                     cu_q, block_tables, block_size, **extra)
+            if dynamic_cache_scales:
+                kq, vq, kdq, vdq = sc
+                scales_out.append({"kq": kq, "vq": vq, "kdq": kdq,
+                                   "vdq": vdq})
             layers_state.append((kc, vc))
         hidden = tr.ln_f(hidden).view(b, s, -1)
         if logits_at is not None:
@@ -408,6 +445,8 @@ class GPT2ForCausalLM(nn.Module):
                           logits_at.reshape(b).long()]
         else:
             rows = hidden[:, s - 1]
+        if dynamic_cache_scales:
+            return self._logits(rows), layers_state, scales_out
         return self._logits(rows), layers_state
 
     def paged_prefill(self, input_ids, block_size=64, blocks_per_seq=None):
@@ -423,17 +462,27 @@ class GPT2ForCausalLM(nn.Module):
         Writes each sequence's row at ``state["dec_lens"]`` into the pools
         in place and reads nothing back to the host, so
         ``jit.to_static(model.paged_decode_step, donate_args=(1,))`` serves
-        every step with one CUDA graph. Returns ``(logits [B, V],
+        every step with one CUDA graph. Int8 pages quantize with the
+        calibrated static scales, or with ``state["cache_scales"]``
+        (dynamic int8) when it is set. Returns ``(logits [B, V],
         new_state)``: the same pools, ``dec_lens + 1``."""
         b = tok.shape[0]
         t = state["dec_lens"]
         tr = self.transformer
         hidden = tr.embed(tok.reshape(b), t)                 # [B, E]
+        dyn = state.get("cache_scales")
         new_layers = []
-        for block, (kc, vc) in zip(tr.h, state["layers"]):
-            hidden = block.paged(hidden, kc, vc, state["zeros_b"], t,
-                                 state["ones_b"], state["cu_b"],
-                                 state["block_tables"], state["block_size"])
+        for li, (block, (kc, vc)) in enumerate(zip(tr.h, state["layers"])):
+            if dyn is not None:
+                # dynamic int8: each slot's scales, fixed by its prefill
+                kwargs = dict(cachekv_scale_kwargs(dyn, li),
+                              use_dynamic_cachekv_quant=True)
+            else:
+                kwargs = cachekv_scale_kwargs(self._cachekv_scales, li)
+            hidden, _ = block.paged(hidden, kc, vc, state["zeros_b"], t,
+                                    state["ones_b"], state["cu_b"],
+                                    state["block_tables"],
+                                    state["block_size"], **kwargs)
             new_layers.append((kc, vc))
         logits = self._logits(tr.ln_f(hidden))               # [B, V]
         return logits, dict(state, layers=new_layers, dec_lens=t + 1)
@@ -461,7 +510,12 @@ class GPT2ForCausalLM(nn.Module):
         pages, so this is the JAX package's one packed call, without the
         uneven packing that would run it a sequence at a time). The chunk's
         positions ``chunk_dec + local`` are clamped to the ``wpe`` table:
-        pad rows may run past it."""
+        pad rows may run past it. Int8 pages take the calibrated static
+        scales; dynamic ones raise, as in the JAX package."""
+        if state.get("cache_scales") is not None:
+            raise NotImplementedError(
+                "fused admission + dynamic cachekv quant: use static "
+                "calibration (calibrate_cachekv_int8)")
         b, c = tok.shape[0], chunk_ids.shape[0]
         t = state["dec_lens"]
         dev = tok.device
@@ -473,17 +527,18 @@ class GPT2ForCausalLM(nn.Module):
         hidden = tr.embed(torch.cat([tok.reshape(b), chunk_ids.reshape(c)]),
                           pos)                               # [B + C, E]
         new_layers = []
-        for block, (kc, vc) in zip(tr.h, state["layers"]):
+        for li, (block, (kc, vc)) in enumerate(zip(tr.h, state["layers"])):
             attn = block.attn
             qkv = attn.c_attn(block.ln_1(hidden))
+            sc = cachekv_scale_kwargs(self._cachekv_scales, li)
             out_dec, _, kc, vc = block_multihead_attention(
                 qkv[:b], kc, vc, state["zeros_b"], t, state["ones_b"],
                 None, None, state["cu_b"], state["cu_b"],
-                state["block_tables"], block_size=state["block_size"])
+                state["block_tables"], block_size=state["block_size"], **sc)
             out_chunk, _, kc, vc = block_multihead_attention(
                 qkv[b:], kc, vc, chunk_enc, chunk_dec, chunk_this, None,
                 None, (0, c), (0, c), chunk_bt,
-                block_size=state["block_size"])
+                block_size=state["block_size"], **sc)
             hidden = hidden + attn.resid_dropout(
                 attn.c_proj(torch.cat([out_dec, out_chunk])))
             hidden = hidden + block.mlp(block.ln_2(hidden))
@@ -500,7 +555,8 @@ class GPT2ForCausalLM(nn.Module):
     @torch.no_grad()
     def generate_paged(self, input_ids, max_new_tokens, block_size=64,
                        blocks_per_seq=None, decode_fn=None):
-        """Greedy decode over the paged cache. Returns int64 ids
+        """Greedy decode over the paged cache (int8 pages after
+        ``calibrate_cachekv_int8``). Returns int64 ids
         ``[B, S + max_new_tokens]``; ``decode_fn`` replaces
         ``paged_decode_step`` (a captured one, for instance)."""
         return paged_generate_loop(self, input_ids, max_new_tokens,

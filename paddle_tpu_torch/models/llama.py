@@ -21,8 +21,13 @@ the paged batcher drives, its attention
 ``incubate.nn.functional.block_gqa_attention`` over a page pool.
 ``generate`` samples (temperature, top-k, top-p) and ``generate_beam``
 searches beams through the drivers GPT-2 shares (``models/generation.py``).
-Not ported yet: MoE, context parallelism, speculative decode and int8
-caches. ``scan_layers`` is accepted and
+Int8 KV pages: ``calibrate_cachekv_int8`` installs static per-kv-head
+scales (then ``paged_alloc`` allocates int8 pools and every paged method
+quantizes with them), and ``paged_prefill_into(dynamic_cache_scales=True)``
+computes a prompt's own scales, which ``cache_scales=`` and
+``state["cache_scales"]`` thread into later chunks and decode steps.
+Not ported yet: MoE, context parallelism and speculative decode.
+``scan_layers`` is accepted and
 runs the unrolled stack (in the JAX package it is a compile-time device
 with the unrolled loop's numerics); selective recompute recomputes whole
 layers, as the JAX package's unrolled path does.
@@ -38,8 +43,9 @@ from torch import nn
 
 from ..device import default_device, to_torch_dtype
 from ..distributed.fleet.recompute import recompute
-from ..incubate.nn.functional.decode_attention import (block_gqa_attention,
-                                                       dense_decode)
+from ..incubate.nn.functional.decode_attention import (
+    block_gqa_attention, cachekv_scale_kwargs, cachekv_scales_from_dense,
+    dense_decode)
 from ..nn import functional as F
 from ..nn.layers import Embedding, Linear, RMSNorm
 from . import generation
@@ -399,19 +405,44 @@ class LlamaForCausalLM(nn.Module):
 
     def paged_alloc(self, n_pages, block_size=64, cache_dtype=None):
         """The physical page pool: per layer, ``(kc, vc)`` of
-        ``[n_pages, KV, block_size, D]`` zeros in the model's type (GQA
-        caches at kv-head count) on the model's device."""
+        ``[n_pages, KV, block_size, D]`` zeros (GQA caches at kv-head
+        count) on the model's device: int8 after
+        ``calibrate_cachekv_int8``, else the model's type; ``cache_dtype``
+        overrides (the dynamic int8 callers pass ``"int8"``)."""
         cfg = self.config
-        dtype = to_torch_dtype(cache_dtype or cfg.dtype)
-        if dtype == torch.int8:
-            raise NotImplementedError(
-                "int8 KV pages are not ported yet (ROADMAP, queue 1, "
-                "item 3: int8 caches)")
+        dtype = to_torch_dtype(cache_dtype or (
+            "int8" if self._cachekv_scales is not None else cfg.dtype))
         shape = (n_pages, cfg.num_key_value_heads, block_size, cfg.head_dim)
         device = self.model.embed_tokens.weight.device
         return [(torch.zeros(shape, dtype=dtype, device=device),
                  torch.zeros(shape, dtype=dtype, device=device))
                 for _ in range(cfg.num_hidden_layers)]
+
+    # per-layer static int8 scale dicts (calibrate_cachekv_int8), or None
+    _cachekv_scales = None
+
+    @torch.no_grad()
+    def calibrate_cachekv_int8(self, sample_ids):
+        """Install static per-kv-head int8 cache scales from a calibration
+        batch ``[B, s]``: the dense prefill (flash attention and RMSNorm
+        kernels on the card), then each layer's |K| and |V| amax per head
+        over the post-RoPE rows gives ``quant = 127 / amax`` and
+        ``dequant = amax / 127``. Afterwards every paged route
+        (``generate_paged``, ``PagedContinuousBatcher``) writes and reads
+        int8 pages. Returns the per-layer scale dicts; ``None`` disables
+        them again."""
+        if sample_ids is None:
+            self._cachekv_scales = None
+            return None
+        _, caches = self.model.forward_prefill(sample_ids,
+                                               sample_ids.shape[1])
+        self._cachekv_scales = cachekv_scales_from_dense(caches)
+        return self._cachekv_scales
+
+    def _layer_cache_scales(self, li):
+        """``block_gqa_attention``'s keyword arguments for layer li's static
+        int8 pages (empty when none are calibrated)."""
+        return cachekv_scale_kwargs(self._cachekv_scales, li)
 
     @torch.no_grad()
     def paged_prefill_into(self, input_ids, layers, block_tables,
@@ -428,19 +459,24 @@ class LlamaForCausalLM(nn.Module):
         appended after ``dec_base`` rows already in the pool, at RoPE
         positions ``dec_base + local``.
 
-        Not ported: the int8 pools (``dynamic_cache_scales``,
-        ``cache_scales``, ``dynamic_scale_valid``) and speculative verify
-        (``logits_all``); they raise ``NotImplementedError``."""
-        if dynamic_cache_scales or cache_scales is not None \
-                or dynamic_scale_valid is not None:
-            raise NotImplementedError(
-                "int8 KV pages are not ported yet (ROADMAP, queue 1, "
-                "item 3: int8 caches)")
+        Int8 pages: with static scales calibrated, the pools are written
+        with them. ``dynamic_cache_scales=True`` (int8 pools) computes each
+        row's per-kv-head scales from this call's rows (``dynamic_scale_valid``
+        ``[B]``: only each row's leading rows count) and returns them as a
+        third element, a per-layer list of ``{"kq", "vq", "kdq", "vdq"}``
+        dicts of ``[B, KV]`` tensors; ``cache_scales`` (such a list)
+        quantizes a later chunk with a first chunk's scales.
+
+        Not ported: speculative verify (``logits_all``), which raises
+        ``NotImplementedError``."""
+        if dynamic_cache_scales and cache_scales is not None:
+            raise ValueError("dynamic_cache_scales computes scales; "
+                             "cache_scales consumes them — pass one")
         if logits_all:
             raise NotImplementedError(
                 "paged_prefill_into(logits_all=True) is speculative "
                 "decode's verify pass, not ported yet (ROADMAP, queue 1, "
-                "item 3)")
+                "item 1.5)")
         self._check_paged_servable()
         cfg = self.config
         b, s = input_ids.shape
@@ -459,15 +495,29 @@ class LlamaForCausalLM(nn.Module):
         model = self.model
         hidden = model.embed_tokens(input_ids)               # [B, s, E]
         layers_state = []
-        for layer, (kc, vc) in zip(model.layers, layers):
+        scales_out = [] if dynamic_cache_scales else None
+        for li, (layer, (kc, vc)) in enumerate(zip(model.layers, layers)):
             attn = layer.self_attn
             x = layer.input_layernorm(hidden)
-            out, kc, vc = block_gqa_attention(
+            if dynamic_cache_scales:
+                extra = dict(use_dynamic_cachekv_quant=True,
+                             compute_dynamic_scales=True,
+                             dynamic_scale_valid=dynamic_scale_valid)
+            else:
+                extra = cachekv_scale_kwargs(
+                    cache_scales if cache_scales is not None
+                    else self._cachekv_scales, li)
+            res = block_gqa_attention(
                 attn.q_proj(x).reshape(b * s, h, d),
                 attn.k_proj(x).reshape(b * s, kvh, d),
                 attn.v_proj(x).reshape(b * s, kvh, d), kc, vc, enc, dec,
                 this, cu_q, block_tables, block_size=block_size,
-                rope_cos=model._cos, rope_sin=model._sin)
+                rope_cos=model._cos, rope_sin=model._sin, **extra)
+            if dynamic_cache_scales:
+                kq, vq, kdq, vdq = res[3]
+                scales_out.append({"kq": kq, "vq": vq, "kdq": kdq,
+                                   "vdq": vdq})
+            out = res[0]
             hidden = hidden + attn.o_proj(out.reshape(b, s, h * d))
             hidden = hidden + layer.mlp(
                 layer.post_attention_layernorm(hidden))
@@ -480,6 +530,8 @@ class LlamaForCausalLM(nn.Module):
                           logits_at.reshape(b).long()]
         else:
             rows = hidden[:, s - 1]
+        if dynamic_cache_scales:
+            return self._lm_logits(rows), layers_state, scales_out
         return self._lm_logits(rows), layers_state
 
     def paged_prefill(self, input_ids, block_size=64, blocks_per_seq=None):
@@ -495,8 +547,11 @@ class LlamaForCausalLM(nn.Module):
         Writes each sequence's row at ``state["dec_lens"]`` into the pools
         in place and reads nothing back to the host, so
         ``jit.to_static(model.paged_decode_step, donate_args=(1,))`` serves
-        every step with one CUDA graph. Returns ``(logits [B, V],
-        new_state)``: the same pools, ``dec_lens + 1``."""
+        every step with one CUDA graph. Int8 pages quantize with the
+        calibrated static scales, or with ``state["cache_scales"]`` (the
+        per-layer ``[B, KV]`` dicts of dynamic int8) when it is set.
+        Returns ``(logits [B, V], new_state)``: the same pools,
+        ``dec_lens + 1``."""
         self._check_paged_servable()
         cfg = self.config
         b = tok.shape[0]
@@ -505,17 +560,25 @@ class LlamaForCausalLM(nn.Module):
         t = state["dec_lens"]
         model = self.model
         hidden = model.embed_tokens(tok.reshape(b, 1))       # [B, 1, E]
+        dyn = state.get("cache_scales")
         new_layers = []
-        for layer, (kc, vc) in zip(model.layers, state["layers"]):
+        for li, (layer, (kc, vc)) in enumerate(zip(model.layers,
+                                                   state["layers"])):
             attn = layer.self_attn
             x = layer.input_layernorm(hidden)
+            if dyn is not None:
+                # dynamic int8: each slot's scales, fixed by its prefill
+                kwargs = dict(cachekv_scale_kwargs(dyn, li),
+                              use_dynamic_cachekv_quant=True)
+            else:
+                kwargs = self._layer_cache_scales(li)
             out, kc, vc = block_gqa_attention(
                 attn.q_proj(x).reshape(b, h, d),
                 attn.k_proj(x).reshape(b, kvh, d),
                 attn.v_proj(x).reshape(b, kvh, d), kc, vc,
                 state["zeros_b"], t, state["ones_b"], state["cu_b"],
                 state["block_tables"], block_size=state["block_size"],
-                rope_cos=model._cos, rope_sin=model._sin)
+                rope_cos=model._cos, rope_sin=model._sin, **kwargs)
             hidden = hidden + attn.o_proj(out.reshape(b, 1, h * d))
             hidden = hidden + layer.mlp(
                 layer.post_attention_layernorm(hidden))
@@ -564,21 +627,23 @@ class LlamaForCausalLM(nn.Module):
         hidden = model.embed_tokens(torch.cat([tok.reshape(b),
                                                chunk_ids.reshape(c)]))
         new_layers = []
-        for layer, (kc, vc) in zip(model.layers, state["layers"]):
+        for li, (layer, (kc, vc)) in enumerate(zip(model.layers,
+                                                   state["layers"])):
             attn = layer.self_attn
             x = layer.input_layernorm(hidden)                 # [B + C, E]
             q = attn.q_proj(x).reshape(b + c, h, d)
             k = attn.k_proj(x).reshape(b + c, kvh, d)
             v = attn.v_proj(x).reshape(b + c, kvh, d)
+            sc = self._layer_cache_scales(li)
             out_dec, kc, vc = block_gqa_attention(
                 q[:b], k[:b], v[:b], kc, vc, state["zeros_b"], t,
                 state["ones_b"], state["cu_b"], state["block_tables"],
                 block_size=state["block_size"], rope_cos=model._cos,
-                rope_sin=model._sin)
+                rope_sin=model._sin, **sc)
             out_chunk, kc, vc = block_gqa_attention(
                 q[b:], k[b:], v[b:], kc, vc, chunk_enc, chunk_dec,
                 chunk_this, (0, c), chunk_bt, block_size=state["block_size"],
-                rope_cos=model._cos, rope_sin=model._sin)
+                rope_cos=model._cos, rope_sin=model._sin, **sc)
             hidden = hidden + attn.o_proj(torch.cat([out_dec, out_chunk]))
             hidden = hidden + layer.mlp(
                 layer.post_attention_layernorm(hidden))
@@ -595,7 +660,8 @@ class LlamaForCausalLM(nn.Module):
     @torch.no_grad()
     def generate_paged(self, input_ids, max_new_tokens, block_size=64,
                        blocks_per_seq=None, decode_fn=None):
-        """Greedy decode over the paged GQA cache. Returns int64 ids
+        """Greedy decode over the paged GQA cache (int8 pages after
+        ``calibrate_cachekv_int8``). Returns int64 ids
         ``[B, S + max_new_tokens]``; ``decode_fn`` replaces
         ``paged_decode_step`` (a captured one, for instance)."""
         return paged_generate_loop(self, input_ids, max_new_tokens,

@@ -139,15 +139,19 @@ def test_clamped_indices_match_the_jax_package(rope_rows):
     _assert_close(*_both(x, rope_rows=rope_rows))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(cache_k_quant_scales=np.ones(2, np.float32)),
-    dict(use_dynamic_cachekv_quant=True),
-    dict(compute_dynamic_scales=True),
+@pytest.mark.parametrize("kw,text", [
+    (dict(cache_k_quant_scales=np.ones(2, np.float32)), "all four"),
+    (dict(use_dynamic_cachekv_quant=True), "non-int8"),
+    (dict(compute_dynamic_scales=True), "requires"),
 ], ids=["static", "dynamic", "compute"])
-def test_int8_pages_raise(kw):
+def test_int8_pages_raise(kw, text):
+    """Int8 arguments on float pools break the scale contract: the JAX
+    package's ValueError, with its text (the int8 pages themselves are held
+    to the JAX function in tests/test_torch_quant_serving.py)."""
     x = _attention_inputs("decode", 1, 4)
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError, match="int8"):
+    kw = {k: t(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+    with pytest.raises(ValueError, match=text):
         block_gqa_attention(t(x["q"]), t(x["k"]), t(x["v"]), t(x["kc"]),
                             t(x["vc"]), t(x["enc"]), t(x["dec"]),
                             t(x["this"]), t(x["cu"]), t(x["bt"]), **kw)

@@ -452,8 +452,7 @@ def test_compile_on_a_cpu_model_raises(models):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cache_quant="dynamic_int8"), dict(kv_quant="int8"),
-    dict(tier_quant="int8"), dict(draft_model=object()),
+    dict(tier_quant="int8", prefix_cache=True), dict(draft_model=object()),
     dict(host_kv_gib=1.0), dict(disk_kv_dir="kv"),
     dict(session_store="sessions")], ids=lambda kw: next(iter(kw)))
 def test_options_that_wait_raise(models, kw):
@@ -593,12 +592,15 @@ def test_generate_paged_capacity_errors(models):
         pm.generate_paged(ids, NEW, block_size=4, blocks_per_seq=3)
 
 
-@pytest.mark.parametrize("kw", [dict(dynamic_cache_scales=True),
-                                dict(logits_all=True)],
-                         ids=["int8", "logits_all"])
-def test_paged_prefill_into_waiting_options_raise(models, kw):
+@pytest.mark.parametrize("kw,error,text", [
+    (dict(dynamic_cache_scales=True), ValueError, "non-int8"),
+    (dict(logits_all=True), NotImplementedError, "not ported")],
+    ids=["int8", "logits_all"])
+def test_paged_prefill_into_waiting_options_raise(models, kw, error, text):
+    """Speculative verify waits; dynamic int8 scales on float pools break
+    the scale contract (int8 pages: tests/test_torch_quant_serving.py)."""
     pm = models[64][1]
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(error, match=text):
         pm.paged_prefill_into(torch.from_numpy(_ids()), pm.paged_alloc(8, 4),
                               torch.zeros(2, 4, dtype=torch.int32), 4, **kw)
 
