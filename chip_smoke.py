@@ -187,6 +187,31 @@ Phases, each printing JSON lines (any failure exits non-zero):
    each quantized batcher's tokens within twice the bf16 spread of the
    same quantized model's own route; the flash forward in GPT-2's
    calibration and generates, the RMSNorm kernel in Llama's run.
+4h. tiers: the KV cache's host and disk tiers. A (after quant, on its
+   uncalibrated Llama-2-7B): bench_prefix_churn.py's stream (32 prefixes
+   of 48 tokens, a 22-page pool of block 16, 2 slots, s_max 96, a warm
+   pass, then 96 Zipf(0.5) draws from --seed) through the graphed
+   PagedContinuousBatcher, device only, with a 1 GiB host tier, and with
+   tier_quant="int8" (bench_quant's tier arm). Checks: the tiered hit rate
+   above the device-only one; demotions, promotions and decode steps with
+   a promotion in flight; clean page and tier audits; pages promoted back
+   equal their rows from before their demotion byte for byte; tier_quant's
+   blobs at most 0.55 of the raw bytes, a page's codes and scales those of
+   clip(rint(x / scale)) in numpy float32; 65 RMSNorm launches a prefill
+   call and a decode step; the tiered tokens the device-only ones or
+   within twice the paged phase's bf16 spread (tier_quant's within 3x
+   that). Per run: hit rate, step p50 and p99, promotion latency p50 and
+   p99, demoted and promoted bytes with their GB/s, peak device memory,
+   the host tier's bytes, the idle share of a window. B (after gateway):
+   bench_session.py's legs on gpt2_serve's GPT-2 (pipelined, serial, 2
+   reps each after an untimed one, and the crash leg) with a host tier of
+   4.37 pages over a disk tier of 273: time to resume and the promotion
+   stream's ms; the pinned chain reached the disk, the resume promoted it,
+   the turns equal the uninterrupted baseline's or lie within twice the
+   bf16 spread. C: a session over the gateway's two graphed paged
+   replicas with a manifest store: pause, churn, the holding replica
+   killed by chaos, resume on the survivor from the manifest, release;
+   its turns against a lone batcher's within twice the spread.
 5. train: Llama-2-7B width at 8 of its 32 layers trains 5 steps of
    4 x 2048 tokens (AdamW, amp.decorate O2 bf16, recompute, TrainStep);
    the launch counts of one step prove the path ran every kernel, and its
@@ -220,10 +245,12 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import hashlib
 import importlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -4081,6 +4108,630 @@ def phase_quant(seed, model=None, spread=None):
     return counts
 
 
+# -- phase 4h ----------------------------------------------------------------
+
+# A: benchmarks/bench_prefix_churn.py:39-48's churn stream at serving_model's
+# width: 32 shared prefixes of 3 blocks of 16 tokens (a 96-page working set)
+# over a 22-page pool, 2 slots, s_max 96, a unique 5-token tail a request, 4
+# new tokens; a warm pass over every prefix, then 96 Zipf(0.5) draws.
+TIER_BLOCK, TIER_PREFIX_BLOCKS, TIER_PREFIXES = 16, 3, 32
+TIER_TAIL, TIER_NEW, TIER_REQUESTS, TIER_ZIPF = 5, 4, 96, 0.5
+TIER_CFG = dict(max_batch=2, s_max=96, block_size=TIER_BLOCK, n_pages=22,
+                policy="ondemand", prefix_cache=True)
+# the bench's 0.25 GiB holds every page of its 2-layer model; a Llama-2-7B
+# page is 32 layers x K and V x 32 heads x 16 rows x 128 x 2 bytes = 8 MiB,
+# so 1 GiB holds the 96-page working set
+TIER_HOST_GIB = 1.0
+TIER_IDLE_PROMPTS = 12       # the window timed, then profiled, for idle
+TIER_PROBE_NODES = 4         # pages whose round trip is held byte for byte
+
+# B: benchmarks/bench_session.py:49-63's session on gpt2_serving_model: a
+# 13-block (208-token) first turn, 6 new tokens, a 7-token follow-up; 10
+# churn prompts of 5 blocks and 3; 2 slots, s_max 240, 34 pages; the tiers
+# sized in the bench's pages (its 0.0008 and 0.05 GiB over its 196,608-byte
+# page): a host tier of 4.37 pages over a disk tier of 273 in a temporary
+# directory (a GPT-2 bf16 page is 12 layers x K and V x 12 heads x 16 x 64
+# x 2 bytes = 576 KiB: 0.0024 and 0.15 GiB); pipelined 3 slots of 5-block
+# chunks, serial 1 whole-tail chunk; 2 reps
+SESS_BLOCKS, SESS_CONT, SESS_NEW = 13, 7, 6
+SESS_CHURN, SESS_CHURN_BLOCKS = 10, 5
+SESS_CFG = dict(max_batch=2, s_max=240, block_size=16, n_pages=34,
+                policy="ondemand", prefix_cache=True)
+SESS_HOST_PAGES, SESS_DISK_PAGES = 0.0008 * 2**30 / 196608, 273
+SESS_LEGS = {"pipelined": (3, 5), "serial": (1, None)}
+SESS_REPS = 2
+# C: the session drill over the gateway phase's paged replicas
+GW_SESSION_NEW, GW_SESSION_CONT, GW_SESSION_CHURN = 16, 16, 8
+
+
+def tier_stream(seed, vocab):
+    """(prefixes, the measured prompts): bench_prefix_churn's _workload
+    drawn from `seed`."""
+    rng = np.random.RandomState(seed)
+    prefixes = [rng.randint(0, vocab, TIER_BLOCK * TIER_PREFIX_BLOCKS)
+                .astype(np.int64) for _ in range(TIER_PREFIXES)]
+    w = 1.0 / np.arange(1, TIER_PREFIXES + 1) ** TIER_ZIPF
+    picks = rng.choice(TIER_PREFIXES, size=TIER_REQUESTS, p=w / w.sum())
+    prompts = [np.concatenate([prefixes[p], rng.randint(
+        0, vocab, TIER_TAIL).astype(np.int64)]) for p in picks]
+    return prefixes, prompts
+
+
+def tier_probes(b, rec):
+    """Wrap the batcher's spill callback and chunk install: the first
+    TIER_PROBE_NODES demoted pages' rows are copied before their
+    demotion and compared, bit for bit, with the rows of the page each is
+    promoted into (bf16 blobs); with tier_quant the first demoted page's
+    blob is held to clip(rint(x / scale)) of its own rows, computed in
+    numpy float32 (the JAX package's arithmetic)."""
+    spill, install = b._read_page_blob, b._install_chunk
+    tracked = {}
+
+    def rows_of(page):
+        return torch.stack([t[page] for kv in b._state["layers"]
+                            for t in kv]).clone()
+
+    def probed_spill(node):
+        before = None
+        if b.tier_quant and not rec["quant_checked"] or \
+                not b.tier_quant and len(tracked) < TIER_PROBE_NODES:
+            before = rows_of(node.page)
+        blob = spill(node)
+        if before is None:
+            return blob
+        if not b.tier_quant:
+            tracked[id(node)] = (node, before)
+            return blob
+        x = before.float().cpu().numpy().reshape(blob["t"].shape)
+        amax = np.abs(x).max(axis=(-2, -1), keepdims=True)
+        scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+        codes = np.clip(np.rint(x / scale), -127, 127).astype(np.int8)
+        rec["quant_checked"] = True
+        rec["quant_codes_differing"] = int(
+            (codes != blob["t"].numpy()).sum())
+        rec["quant_scales_equal"] = scale.tobytes() == \
+            blob["ts"].numpy().tobytes()
+        return blob
+
+    def probed_install(promo, chunk, staged):
+        install(promo, chunk, staged)
+        for node, page in zip(chunk["nodes"], chunk["pages"]):
+            hit = tracked.pop(id(node), None)
+            if hit is not None:
+                rec["round_trips"].append(bool(torch.equal(
+                    rows_of(page).view(torch.int16),
+                    hit[1].view(torch.int16))))
+
+    rec.update(quant_checked=False, round_trips=[])
+    b.prefix_cache._spill = probed_spill
+    b._install_chunk = probed_install
+
+
+def tier_run(model, prefixes, prompts, host_kv_gib=None, tier_quant=None,
+             idle=False):
+    """bench_prefix_churn's _run_stream through a graphed
+    PagedContinuousBatcher(**TIER_CFG): the warm pass, then the measured
+    Zipf stream one step at a time (each step's wall; the steps that began
+    with a promotion in flight and slots decoding, the bench's overlap; the
+    steps that decoded while one was in flight after them). The launch
+    counters, the registry and the model's paged_prefill_into calls are set
+    to 0 before the warm pass and read after the stream. With a host tier
+    the probes of tier_probes run; with `idle`, one window of
+    TIER_IDLE_PROMPTS more prompts is then timed, and run again under the
+    profiler, for the idle share. Returns (the measured requests'
+    sequences, the report)."""
+    from paddle_tpu_torch.inference import PagedContinuousBatcher
+    from paddle_tpu_torch.observability.metrics import get_registry
+    from paddle_tpu_torch.ops.hopper import launch_counts, reset_launch_counts
+    reg = get_registry()
+    reg.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    b = PagedContinuousBatcher(model, compile=True, host_kv_gib=host_kv_gib,
+                               tier_quant=tier_quant, **TIER_CFG)
+    probes = {}
+    if host_kv_gib:
+        tier_probes(b, probes)
+    calls = count_calls(model, "paged_prefill_into")
+    reset_launch_counts()
+    t_start = time.perf_counter()
+    try:
+        for p in prefixes:
+            b.submit(p, TIER_NEW)
+        b.run_until_done()
+        base = b.prefix_cache.stats()
+        rids = [b.submit(p, TIER_NEW) for p in prompts]
+        times, overlap, decoded_in_flight = [], 0, 0
+        t_run = time.perf_counter()
+        while b._has_work():
+            pending, decoding = b._promo is not None, bool(b._slot_req)
+            steps = b._tele.steps
+            t0 = time.perf_counter()
+            b.step()
+            times.append(time.perf_counter() - t0)
+            overlap += pending and decoding
+            decoded_in_flight += (b._promo is not None
+                                  and b._tele.steps > steps)
+            if len(times) > 20000:
+                fail("tiers: the churn stream did not drain")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        launches = launch_counts()
+        decode_steps = b._tele.steps
+        outs = [b.pop_result(r) for r in rids]
+        del model.paged_prefill_into
+        st = b.prefix_cache.stats()
+        leaked = b.audit_pages()
+        audit = b.prefix_cache.audit_tiers()
+        t = np.sort(np.asarray(times))
+        hit = st["hit_tokens"] - base["hit_tokens"]
+        miss = st["miss_tokens"] - base["miss_tokens"]
+        promo_h = reg.get("serving.prefix_promotion_seconds")
+        demote_h = reg.get("serving.prefix_demotion_seconds")
+        # registered by the first AsyncLoader (the tiered runs')
+        load_s = getattr(reg.get("prefetch.async_load_seconds"), "sum", 0)
+        step_c, step_r = b._step_fn.captures, b._step_fn.replays
+        rep = {
+            "host_kv_gib": host_kv_gib, "tier_quant": tier_quant,
+            **TIER_CFG, "hit_rate": hit / max(hit + miss, 1),
+            "hit_tokens": hit, "miss_tokens": miss,
+            "requests": len(prompts), "steps": len(times),
+            "overlap_steps": int(overlap),
+            "steps_decoding_with_promotion_in_flight":
+                int(decoded_in_flight),
+            "wall_s": wall,
+            "step_ms_p50": float(t[len(t) // 2]) * 1e3,
+            "step_ms_p99": float(t[min(len(t) - 1,
+                                       int(len(t) * 0.99))]) * 1e3,
+            "cache": st, "tiers_audit": audit, "pages_leaked": leaked,
+            "prefill_calls": calls[0], "decode_steps": decode_steps,
+            "graph": [step_c, step_r],
+            "wrapper_counts": launches,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "host_bytes_end": b._host_bytes_g.value,
+            "host_bytes_peak": b._host_bytes_g.peak,
+            "spill_raw_bytes": reg.get(
+                "serving.prefix_spill_raw_bytes").value,
+            "spill_blob_bytes": reg.get(
+                "serving.prefix_spill_blob_bytes").value,
+            "promotion_ms_p50": (promo_h.quantile(0.5) or 0) * 1e3,
+            "promotion_ms_p99": (promo_h.quantile(0.99) or 0) * 1e3,
+            "promotions_streams": promo_h.count,
+            "demotion_ms_p50": (demote_h.quantile(0.5) or 0) * 1e3,
+            "demotion_gb_per_s": (st["demoted_bytes"] / demote_h.sum / 1e9
+                                  if demote_h.sum else None),
+            # the workers' time a chunk: its tier reads, the copy to the
+            # card and the wait for it
+            "promotion_copy_gb_per_s": (st["promoted_bytes"] / load_s / 1e9
+                                        if load_s else None),
+            "promotion_stream_gb_per_s": (st["promoted_bytes"] / promo_h.sum
+                                          / 1e9 if promo_h.sum else None),
+            "dequant_ms_sum": reg.get("quant.dequant_seconds").sum * 1e3,
+            "probes": probes,
+            "run_s": time.perf_counter() - t_start}
+        if idle:
+            rng = np.random.RandomState(TIER_REQUESTS)
+            window = [prompts[i] for i in rng.randint(
+                0, len(prompts), TIER_IDLE_PROMPTS)]
+
+            def run_window():
+                for p in window:
+                    b.submit(p, TIER_NEW)
+                b.run_until_done()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_window()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+            prof = profile_one(run_window)
+            dev = prof["device_ms"]
+            rep["idle"] = {
+                "window_wall_ms": window_ms, "window_device_ms": dev,
+                "device_idle_share": (1 - dev / window_ms
+                                      if dev != "not measured" else dev),
+                "top": prof["top"][:6]}
+        return outs, rep
+    finally:
+        b.close()
+        # the cache's spill callback and the probes close over b: only a
+        # collection frees its pool and its graph
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+
+
+def tier_divergence(model, ref_box, pairs):
+    """divergence() against a float32 copy of `model`, built on first need
+    into ref_box[0] (a 27 GB copy at Llama-2-7B width)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b_config
+    if all(np.array_equal(a, b) for _, a, b in pairs):
+        return 0, []
+    if not ref_box:
+        ref = LlamaForCausalLM(llama2_7b_config(), device="cuda")
+        ref.load_state_dict(model.state_dict())
+        ref_box.append(ref)
+    return divergence(ref_box[0], pairs)
+
+
+def phase_tiers(seed, model, spread):
+    """Part A of the tiers phase: the KV cache's host tier at Llama-2-7B
+    width (`model`, bf16, 32 layers, uncalibrated), bench_prefix_churn's
+    stream (tier_stream) through TIER_CFG, graphed: device only, then with
+    a TIER_HOST_GIB host tier, then with the host tier and
+    tier_quant="int8" (bench_quant's tier arm). Checks: the tiered hit
+    rate is above the device-only one; the tiered runs demote and promote,
+    and decode while a promotion is in flight; audit_pages and audit_tiers
+    are clean; the probed pages' rows after demotion and promotion equal
+    their copies from before it, byte for byte; the tier_quant run stores
+    at most 0.55 of the raw bytes, and its probed page's codes and scales
+    are clip(rint(x / scale)) of its rows in numpy float32; the RMSNorm
+    wrapper counts 65 launches a prefill call and a decode step (graphed:
+    the warm-up and the capture; the replays counted by to_static), one
+    capture and a replay a decode step, nothing else launches; the tiered
+    tokens equal the device-only ones or, at each first difference, both
+    picks lie within twice the paged phase's bf16 spread (`spread`) of a
+    float32 copy's top (tier_quant's within QUANT_LLAMA_NOISE times that:
+    int8 KV moves the 32 random layers' logits up to that many times bf16's
+    own distance from float32, phase quant).
+    Returns each run's launches (the replays' included)."""
+    from paddle_tpu_torch.ops.hopper import KERNELS
+    t_phase = time.perf_counter()
+    cfg = model.config
+    norms = 2 * cfg.num_hidden_layers + 1
+    prefixes, prompts = tier_stream(seed, cfg.vocab_size)
+    outs, reps, counts = {}, {}, {}
+    with torch.no_grad():
+        for name, gib, tq in (("device only", None, None),
+                              ("tiered", TIER_HOST_GIB, None),
+                              ("tiered int8", TIER_HOST_GIB, "int8")):
+            got, rep = tier_run(model, prefixes, prompts, gib, tq,
+                                idle=name == "tiered")
+            step_c, step_r = rep["graph"]
+            expect = dict.fromkeys(KERNELS, 0)
+            expect["rms_norm"] = norms * (rep["prefill_calls"] + 2 * step_c)
+            counts[name] = dict(rep["wrapper_counts"])
+            counts[name]["rms_norm"] += norms * (step_r - step_c)
+            rep["launches"] = counts[name]
+            emit({"phase": "tiers", "part": "A", "run": name,
+                  "layers": cfg.num_hidden_layers, **rep})
+            for p, o in zip(prompts, got):
+                if len(o) != len(p) + TIER_NEW or \
+                        not np.array_equal(o[:len(p)], p):
+                    fail(f"tiers {name}: {len(o)} tokens for a prompt of "
+                         f"{len(p)}, or the prompt lost")
+            if rep["wrapper_counts"] != expect or step_c != 1 or \
+                    step_r != rep["decode_steps"]:
+                fail(f"tiers {name}: launch counts {rep['wrapper_counts']} "
+                     f"(graph {rep['graph']}, {rep['prefill_calls']} "
+                     f"prefill calls, {rep['decode_steps']} decode steps), "
+                     f"expected {expect}, one capture and a replay a step")
+            if rep["pages_leaked"]:
+                fail(f"tiers {name}: {rep['pages_leaked']} pages leaked")
+            outs[name], reps[name] = got, rep
+    dev, tiered, tq = (reps[n] for n in ("device only", "tiered",
+                                         "tiered int8"))
+    if not tiered["hit_rate"] > dev["hit_rate"]:
+        fail(f"tiers: the tiered hit rate {tiered['hit_rate']} is not above "
+             f"the device-only {dev['hit_rate']}")
+    for name in ("tiered", "tiered int8"):
+        rep, st = reps[name], reps[name]["cache"]
+        if st["demotions"] < 1 or st["promotions"] < 1 or \
+                rep["steps_decoding_with_promotion_in_flight"] < 1:
+            fail(f"tiers {name}: {st['demotions']} demotions, "
+                 f"{st['promotions']} promotions, "
+                 f"{rep['steps_decoding_with_promotion_in_flight']} steps "
+                 "decoding with a promotion in flight")
+        if "host_bytes" not in rep["tiers_audit"]:
+            fail(f"tiers {name}: the tier audit reports {rep['tiers_audit']}")
+    trips = tiered["probes"]["round_trips"]
+    if not trips or not all(trips):
+        fail(f"tiers: demoted and promoted pages' rows against their copies "
+             f"from before the demotion: {trips}")
+    pq = tq["probes"]
+    if not pq["quant_checked"] or pq["quant_codes_differing"] or \
+            not pq["quant_scales_equal"]:
+        fail(f"tiers int8: the probed page's codes and scales against "
+             f"clip(rint(x / scale)): {pq}")
+    if not tq["spill_blob_bytes"] <= 0.55 * tq["spill_raw_bytes"]:
+        fail(f"tiers int8: {tq['spill_blob_bytes']} stored bytes of "
+             f"{tq['spill_raw_bytes']} raw")
+    t_ref = time.perf_counter()
+    ref_box = []
+    lens = [len(p) for p in prompts]
+    checks = {}
+    with torch.no_grad():
+        for name, limit in (("tiered", 2 * spread),
+                            ("tiered int8", QUANT_LLAMA_NOISE * 2 * spread)):
+            diff = tier_divergence(model, ref_box, [
+                (n, a, b) for n, a, b in zip(lens, outs["device only"],
+                                             outs[name])])
+            checks[name] = {"differing_tokens": diff[0],
+                            "tokens": TIER_NEW * len(prompts),
+                            "first_differences": diff[1],
+                            "pick_limit": limit}
+    del ref_box
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    _, rrec = rms_case(gen, torch.bfloat16, (1, TIER_BLOCK * TIER_PREFIX_BLOCKS
+                                             + TIER_TAIL, cfg.hidden_size))
+    emit({"phase": "tiers", "part": "A", "check": "tokens",
+          "bf16_spread": spread, "vs_device_only": checks,
+          "rms_norm_prefill_rows": rrec,
+          "hit_rate": {n: r["hit_rate"] for n, r in reps.items()},
+          "token_check_s": time.perf_counter() - t_ref,
+          "phase_s": time.perf_counter() - t_phase})
+    over = [(n, r) for n, c in checks.items() for r in c["first_differences"]
+            if max(r["below_top"]) > c["pick_limit"]]
+    if over:
+        fail(f"tiers: tiered picks leave the device-only ones by more than "
+             f"their limits: {over}")
+    return counts
+
+
+def session_batcher(model, root, tiers=True, slots=3, chunk=5):
+    """bench_session's _batcher (graphed): SESS_CFG with the host and disk
+    tiers and the manifest store under `root`; without `tiers`, the
+    baseline's plain prefix cache."""
+    from paddle_tpu_torch.inference import PagedContinuousBatcher
+    cfg = model.config
+    page_gib = (cfg.num_hidden_layers * 2 * cfg.hidden_size * SESS_CFG[
+        "block_size"] * next(model.parameters()).element_size() / 2**30)
+    kw = dict(SESS_CFG)
+    if tiers:
+        kw.update(host_kv_gib=SESS_HOST_PAGES * page_gib,
+                  disk_kv_dir=os.path.join(root, "kv_disk"),
+                  disk_kv_gib=SESS_DISK_PAGES * page_gib, promo_slots=slots,
+                  promo_chunk_blocks=chunk,
+                  session_store=os.path.join(root, "sessions"))
+    return PagedContinuousBatcher(model, compile=True, **kw)
+
+
+def session_turn(b, prompt, new=SESS_NEW):
+    rid = b.submit(prompt, new)
+    return b.run_until_done()[rid]
+
+
+def session_leg(model, root, prompt, cont, churn, slots, chunk):
+    """bench_session's _pause_churn_resume: the first turn, the pause (pin
+    and publish), the churn, then the timed resume through the promotion
+    stream. Returns the leg's record."""
+    from paddle_tpu_torch.observability.metrics import get_registry
+    b = session_batcher(model, root, slots=slots, chunk=chunk)
+    try:
+        out1 = session_turn(b, prompt)
+        published = b.pause_session("agent", out1)
+        for p in churn:
+            b.submit(p, SESS_NEW)
+        b.run_until_done()
+        pinned = b._session_pins.get("agent", [])
+        residency = [n.residency for n in pinned]
+        toks = b.resume_session("agent")
+        if toks is None or not np.array_equal(toks, out1):
+            fail(f"tiers session: the manifest resolved {toks}, not the "
+                 "first turn's sequence")
+        h = get_registry().histogram("serving.prefix_promotion_seconds")
+        promos, sum0 = b.prefix_cache.promotions, h.sum
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out2 = session_turn(b, np.concatenate([toks, cont]))
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        leaked = b.audit_pages()
+        st = b.prefix_cache.stats()
+        return {"out1": out1, "out2": out2, "resume_ms": resume_s * 1e3,
+                "promo_stream_ms": (h.sum - sum0) * 1e3,
+                "published": bool(published), "pinned": len(pinned),
+                "residency_before_resume": residency,
+                "resume_promotions": b.prefix_cache.promotions - promos,
+                "pin_drops": st["session_pin_drops"],
+                "pages_leaked": leaked, "tiers_audit":
+                    b.prefix_cache.audit_tiers()}
+    finally:
+        b.close()
+        del b
+        gc.collect()
+
+
+def tiers_sessions(model, ref, root):
+    """Part B: bench_session's three legs (phase_tiers_sessions' docstring)
+    under `root`, each turn against the baseline's by divergence with the
+    float32 copy `ref`. Returns (the record, {leg: divergence}, the
+    baseline's (prompt length, sequence) pairs)."""
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(0)
+    prompt = rng.randint(0, vocab, 16 * SESS_BLOCKS).astype(np.int64)
+    cont = rng.randint(0, vocab, SESS_CONT).astype(np.int64)
+    churn = [rng.randint(0, vocab, 16 * SESS_CHURN_BLOCKS + 3)
+             .astype(np.int64) for _ in range(SESS_CHURN)]
+    base = session_batcher(model, root, tiers=False)
+    base1 = session_turn(base, prompt)
+    base2 = session_turn(base, np.concatenate([base1, cont]))
+    del base
+    legs = {name: [] for name in SESS_LEGS}
+    # one untimed leg a geometry first, as the bench: first-use costs
+    for name, (slots, chunk) in SESS_LEGS.items():
+        session_leg(model, os.path.join(root, f"warm {name}"), prompt, cont,
+                    churn, slots, chunk)
+    for rep in range(SESS_REPS):
+        for name, (slots, chunk) in SESS_LEGS.items():
+            legs[name].append(session_leg(
+                model, os.path.join(root, f"{name} {rep}"), prompt, cont,
+                churn, slots, chunk))
+    crash = session_batcher(model, os.path.join(root, "pipelined 0"))
+    toks = crash.resume_session("agent")
+    if toks is None:
+        fail("tiers session: the crash leg's manifest did not resolve")
+    crash2 = session_turn(crash, np.concatenate([toks, cont]))
+    crash_leaked = crash.audit_pages()
+    crash.close()
+    del crash
+    gc.collect()
+    n1, n2 = len(prompt), len(base1) + SESS_CONT
+    pairs = {"crash": [(n2, base2, crash2)]}
+    for name, runs in legs.items():
+        pairs[name] = [(n1, base1, r["out1"]) for r in runs] + \
+            [(n2, base2, r["out2"]) for r in runs]
+    diffs = {name: divergence(ref, p) for name, p in pairs.items()}
+    rec = {
+        "time_to_resume_ms": {n: min(r["resume_ms"] for r in runs)
+                              for n, runs in legs.items()},
+        "promo_stream_ms": {n: min(r["promo_stream_ms"] for r in runs)
+                            for n, runs in legs.items()},
+        "legs": {n: [{k: v for k, v in r.items()
+                      if k not in ("out1", "out2")} for r in runs]
+                 for n, runs in legs.items()},
+        "equal_to_baseline": {n: d[0] == 0 for n, d in diffs.items()},
+        "differences": {n: {"differing_tokens": d[0],
+                            "first_differences": d[1]}
+                        for n, d in diffs.items()},
+        "crash_manifest_tokens": len(toks),
+        "crash_pages_leaked": crash_leaked}
+    for name, runs in legs.items():
+        for r in runs:
+            if "disk" not in r["residency_before_resume"]:
+                fail(f"tiers session {name}: the pinned chain sat in "
+                     f"{r['residency_before_resume']} before the resume, "
+                     "not down to disk")
+            if r["resume_promotions"] < 1 or r["pin_drops"] or \
+                    not r["published"] or r["pages_leaked"]:
+                fail(f"tiers session {name}: {r['resume_promotions']} "
+                     f"promotions in the resume, {r['pin_drops']} pin drops, "
+                     f"published {r['published']}, {r['pages_leaked']} "
+                     "pages leaked")
+    return rec, diffs, [(n1, base1), (n2, base2)]
+
+
+def tiers_gateway(model, root):
+    """Part C: a session over the gateway phase's two graphed paged
+    replicas (GW_PAGED with the prefix cache) under the affinity policy,
+    with a manifest store: a turn, pause_session, churn, the holding
+    replica killed by chaos gateway.step.<name>, resume_session on the
+    survivor from the manifest, release_session(delete_manifest=True);
+    then the same two turns through a lone graphed paged batcher. Returns
+    (the record, the (prompt length, lone, gateway) pairs)."""
+    from paddle_tpu_torch.inference import Gateway, PagedContinuousBatcher
+    from paddle_tpu_torch.resilience import arm_scenario, disarm
+    vocab = model.config.vocab_size
+    rng = np.random.RandomState(GW_SESSION_NEW)
+    prompt = rng.randint(0, vocab, GW_CTX).astype(np.int64)
+    cont = rng.randint(0, vocab, GW_SESSION_CONT).astype(np.int64)
+    churn = [rng.randint(0, vocab, GW_CTX).astype(np.int64)
+             for _ in range(GW_SESSION_CHURN)]
+
+    def replica():
+        return PagedContinuousBatcher(model, compile=True, prefix_cache=True,
+                                      **GW_PAGED)
+    gw = Gateway(policy="affinity",
+                 session_store=os.path.join(root, "sessions"))
+    for i in range(GW_REPLICAS):
+        gw.add_replica(f"r{i}", replica())
+    gid = gw.submit(prompt, GW_SESSION_NEW, session_id="conv")
+    out1 = gw.run_until_done()[gid]
+    published = gw.pause_session("conv")
+    victim = gw._session_last_replica["conv"]
+    pinned = len(gw.pool.get(victim).batcher._session_pins.get("conv", []))
+    for p in churn:
+        gw.submit(p, GW_SESSION_NEW)
+    gw.run_until_done()
+    arm_scenario(f"seed=0; gateway.step.{victim}:transient_error:count=1")
+    try:
+        gw.submit(prompt, 4)
+        for _ in range(1000):
+            gw.step()
+            if not gw.pool.get(victim).alive:
+                break
+    finally:
+        disarm()
+    gw.run_until_done()
+    gid2 = gw.resume_session("conv", new_tokens=cont,
+                             max_new_tokens=GW_SESSION_NEW)
+    while gw._has_work():
+        gw.step()
+    served_on = gw._finished[gid2].replica
+    out2 = gw.pop_result(gid2)
+    gw.release_session("conv", delete_manifest=True)
+    alive = {r.name: r.alive for r in gw.pool.replicas()}
+    audits = {r.name: r.batcher.audit_pages() for r in gw.pool.replicas()
+              if r.alive}
+    rec = {"published": published, "pinned_blocks": pinned,
+           "victim": victim, "alive": alive, "resumed_on": served_on,
+           "manifests_after_release": gw.session_store.sessions(),
+           "findings": [f.kind for f in gw.session_store.drain_findings()],
+           "stats": gw.stats(), "audit_pages": audits}
+    del gw
+    lone = replica()
+    lone1 = session_turn(lone, prompt, GW_SESSION_NEW)
+    lone2 = session_turn(lone, np.concatenate([lone1, cont]),
+                         GW_SESSION_NEW)
+    del lone
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not published or alive.get(victim) or served_on == victim or \
+            rec["manifests_after_release"] or any(audits.values()) or \
+            not np.array_equal(out2[:len(out1)], out1):
+        fail(f"tiers gateway session: {rec}")
+    return rec, [(len(prompt), lone1, out1),
+                 (len(out1) + len(cont), lone2, out2)]
+
+
+
+def phase_tiers_sessions(seed):
+    """Parts B and C of the tiers phase on gpt2_serving_model (bf16, 12 x
+    768, vocab 32000, weights from `seed`). B: bench_session.py:85-174's
+    legs (session_leg, SESS_REPS reps each): pipelined (promo_slots 3,
+    5-block chunks) and serial (one slot, one whole-tail chunk) after one
+    untimed leg each, then the crash leg (a fresh batcher sharing only the
+    store), against the uninterrupted two-turn baseline. C: tiers_gateway.
+    Checks: the pinned chain reached the disk before each resume, the
+    resume promoted it, the manifest published and resolved to the first
+    turn's sequence, no pin dropped and no page or tier blob leaked; every
+    leg's turns, the crash leg's and the gateway's equal their references
+    or, at each first difference, the two picks lie within twice the bf16
+    spread (bf16_spread of the baseline against a float32 copy); the
+    gateway's victim died, the resume ran on the survivor and the release
+    deleted the manifest; nothing launches a kernel (GPT-2's paged
+    attention and LayerNorm are plain). Returns the launches."""
+    import tempfile
+    from paddle_tpu_torch.models import GPT2Config, GPT2ForCausalLM
+    from paddle_tpu_torch.ops.hopper import (KERNELS, launch_counts,
+                                             reset_launch_counts)
+    t_phase = time.perf_counter()
+    model = gpt2_serving_model(seed)
+    ref = GPT2ForCausalLM(GPT2Config(**dict(GPT2_SERVE_CFG,
+                                            dtype="float32")),
+                          device="cuda").eval()
+    ref.load_state_dict(model.state_dict())
+    with tempfile.TemporaryDirectory(prefix="tiers_") as root, \
+            torch.no_grad():
+        reset_launch_counts()
+        sess, diffs, base = tiers_sessions(model, ref,
+                                           os.path.join(root, "b"))
+        gw_rec, gw_pairs = tiers_gateway(model, os.path.join(root, "c"))
+        launches = launch_counts()
+        spread, own, _ = bf16_spread(model, ref, [s for _, s in base],
+                                     [n for n, _ in base])
+        diffs["gateway"] = divergence(ref, gw_pairs)
+    del model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "tiers", "part": "B", **sess,
+          "bf16_spread": spread, "baseline_own_full_forward_gap": own})
+    emit({"phase": "tiers", "part": "C", **gw_rec,
+          "vs_lone": {"differing_tokens": diffs["gateway"][0],
+                      "first_differences": diffs["gateway"][1]},
+          "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    over = [(n, r) for n, d in diffs.items() for r in d[1]
+            if max(r["below_top"]) > 2 * spread]
+    if over:
+        fail(f"tiers sessions: picks leave their references by more than "
+             f"twice the bf16 spread {spread}: {over}")
+    if launches != dict.fromkeys(KERNELS, 0):
+        fail(f"tiers sessions launched {launches}")
+    return launches
+
+
 PROFILE_PAD = 32
 
 
@@ -4602,10 +5253,12 @@ def main(argv=None):
     paged, spread, run_a = phase_paged(args.seed, model, dense_tokens)
     fused = phase_fused(args.seed, model, spread, run_a)
     quant = phase_quant(args.seed, model, spread)
+    tiers = phase_tiers(args.seed, model, spread)
     del model, dense_tokens, run_a
     torch.cuda.empty_cache()
     gpt2_serve = phase_gpt2_serve(args.seed)
     gateway = phase_gateway(args.seed)
+    tiers["sessions and gateway"] = phase_tiers_sessions(args.seed)
     train, train_profile = phase_train(args.seed)
     packed, _ = phase_train(args.seed, packed=True)
     gpt2 = phase_gpt2_train(args.seed)
@@ -4658,6 +5311,10 @@ def main(argv=None):
             # forward), Llama's calibration and int8-page Run A (graphed:
             # the replays' RMSNorm launches included)
             k["launches_per_quant_run"] = quant_runs
+        # per tiers run: part A's three Llama-2-7B churns (graphed: the
+        # replays' launches included), parts B and C on GPT-2
+        k["launches_per_tier_run"] = {run: c[name]
+                                      for run, c in tiers.items()}
         if any(gateway[name].values()):
             # per gateway window of 12 requests over two graphed dense
             # replicas, by policy, and in the failover run

@@ -29,11 +29,13 @@ Typed rejections reuse the batchers' exception family
 queue-capacity sheds raise ``Overloaded``; infeasible or expired
 deadlines raise ``DeadlineExceeded``. One family, every serving layer.
 
-Not ported yet (ROADMAP.md, queue 1, item 1.4: the host and disk tiers,
-with sessions): durable sessions. ``Gateway(session_store=...)``,
-``pause_session`` and ``resume_session`` raise ``NotImplementedError``
-naming that item; ``release_session`` works (it forgets the session's
-sticky routing, and unpins on batchers that pin).
+Durable sessions: with a ``session_store`` (a ``SessionStore`` or its
+directory, shared by every replica and gateway), ``pause_session`` pins a
+finished session's KV chain on the replica that served it and publishes
+its crash-safe manifest; ``resume_session`` rebuilds the context from the
+manifest (or, when that is missing or rejected, from the gateway's own
+record or the caller's tokens, counted in ``session.resume_fallbacks``)
+and submits the next turn on whichever replica the router picks.
 """
 from __future__ import annotations
 
@@ -44,8 +46,11 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ...observability import trace_context as _trace
+from ...observability.fleet import spool_event
+from ...observability.metrics import get_registry
 from ...resilience.recovery import DeadlineExceeded, Overloaded
 from ...perf.buckets import resolve_ladder
+from ..session_store import SessionManifest, SessionStore, model_identity
 from .quota import TenantQuotas
 from .replica import Replica, ReplicaPool
 from .router import (DispatchQueue, PRIORITY_HIGH, PRIORITY_LOW,
@@ -95,7 +100,6 @@ class _GatewayStats:
     registry series (the pattern ``_ServingStats`` set)."""
 
     def __init__(self):
-        from ...observability.metrics import get_registry
         reg = get_registry()
         self.requests_c = reg.counter(
             "gateway.requests", "requests accepted at the gateway")
@@ -167,9 +171,16 @@ class Gateway:
                  step_retry=None, slo_tpot_s: Optional[float] = None,
                  slo_ttft_s: Optional[float] = None,
                  prompt_buckets="pow2", session_store=None):
-        if session_store is not None:
-            _no_sessions("Gateway(session_store=...)")
         self.pool = ReplicaPool(step_retry=step_retry)
+        # durable sessions: the shared manifest store every replica can
+        # resolve a returning session id from, and the gateway's own record
+        # of each session's last full sequence and serving replica (the
+        # local fast path and the pin target)
+        if isinstance(session_store, str):
+            session_store = SessionStore(session_store)
+        self.session_store = session_store
+        self._session_tokens: Dict[str, np.ndarray] = {}
+        self._session_last_replica: Dict[str, str] = {}
         self.router = resolve_policy(policy)
         self.quotas = (quotas if isinstance(quotas, TenantQuotas)
                        else TenantQuotas(quotas))
@@ -218,6 +229,13 @@ class Gateway:
             if isinstance(self.router, SessionAffinityPolicy):
                 self.router.forget_replica(name)
             self._requeue_from(rep, drained=True)
+        # session pins stay across a drain: the replica stays warm, so a
+        # later resume can still ride its tiered chain; the manifests in
+        # the shared store are untouched
+        pins = len(getattr(rep.batcher, "_session_pins", {}) or {})
+        if pins:
+            spool_event("session", op="drain_preserve", replica=name,
+                        sessions=pins)
 
     def remove_replica(self, name: str, force: bool = False) -> Replica:
         """Remove ``name`` from the pool. ``force`` requeues its
@@ -543,6 +561,13 @@ class Gateway:
     def _finish(self, req: GatewayRequest):
         req.finished = True
         req.finish_t = _time.perf_counter()
+        if req.session_id is not None:
+            # the session's context after this turn: what pause_session
+            # publishes and a local resume reuses
+            self._session_tokens[req.session_id] = np.concatenate(
+                [req.prompt, np.asarray(req.delivered, np.int64)])
+            if req.replica is not None:
+                self._session_last_replica[req.session_id] = req.replica
         if req.spans:
             _trace.end_open_spans(req.spans)
         if req.trace is not None:
@@ -583,30 +608,128 @@ class Gateway:
         _stream_buffered_gauge().set(buffered)
 
     # -- durable sessions -----------------------------------------------------
-    def pause_session(self, session_id: str) -> bool:
-        """Not ported yet: pin a session's KV chain and publish its
-        manifest (ROADMAP.md, queue 1, item 1.4)."""
-        _no_sessions("Gateway.pause_session")
+    def _session_paged_target(self, session_id: str):
+        """The replica whose cache should hold the session's chain: the one
+        that served its last turn if it is still in the pool and alive,
+        else None (a resume routes by prefix depth or falls back)."""
+        name = self._session_last_replica.get(session_id)
+        if name is None and isinstance(self.router, SessionAffinityPolicy):
+            name = self.router._sessions.get(session_id)
+        if name is None:
+            return None
+        try:
+            rep = self.pool.get(name)
+        except KeyError:
+            return None
+        return rep if rep.alive else None
 
-    def resume_session(self, session_id: str, *args, **kwargs) -> int:
-        """Not ported yet: resume a paused session from its manifest
-        (ROADMAP.md, queue 1, item 1.4)."""
-        _no_sessions("Gateway.resume_session")
+    def pause_session(self, session_id: str) -> bool:
+        """Pause a conversation the gateway served: session-pin its KV chain
+        on the replica that holds it (churn may demote the chain but cannot
+        drop it past the last tier) and publish the crash-safe manifest to
+        the shared store, so the session survives that replica's death and
+        a rescale. True iff the manifest published atomically. Raises
+        ``KeyError`` for a session id with no finished turn."""
+        toks = self._session_tokens.get(session_id)
+        if toks is None:
+            raise KeyError(f"session {session_id!r}: no finished turn "
+                           f"to pause")
+        rep = self._session_paged_target(session_id)
+        pinned = 0
+        for r in self.pool.replicas():
+            b = r.batcher
+            if not hasattr(b, "pin_session"):
+                continue
+            if rep is not None and r.name == rep.name:
+                pinned = b.pin_session(session_id, toks)
+            elif session_id in getattr(b, "_session_pins", {}):
+                # a stale pin from an earlier turn on another replica
+                b.unpin_session(session_id)
+        published = False
+        if self.session_store is not None:
+            src = rep if rep is not None else next(
+                (r for r in self.pool.replicas()
+                 if hasattr(r.batcher, "block_size")), None)
+            bs = src.batcher.block_size if src is not None else 16
+            ident = (model_identity(src.batcher.model)
+                     if src is not None else "")
+            published = self.session_store.publish(SessionManifest(
+                session_id=session_id,
+                token_ids=[int(t) for t in toks],
+                block_size=bs, model=ident))
+        spool_event("session", op="pause", session=session_id,
+                    replica=rep.name if rep is not None else "",
+                    blocks=pinned, published=int(published))
+        return published
+
+    def resume_session(self, session_id: str, new_tokens=None,
+                       max_new_tokens: int = 32, tenant: str = "default",
+                       priority=PRIORITY_HIGH,
+                       deadline_s: Optional[float] = None,
+                       fallback_tokens=None) -> int:
+        """Resume a paused session on whichever replica the router picks:
+        the context comes from the shared manifest (replica-independent:
+        this works on a gateway that never saw the session), or, when the
+        manifest is missing, torn or corrupt, from the gateway's own record
+        or the caller's ``fallback_tokens`` (a typed finding lands in the
+        store and the resume prefills in full, token-exact either way). The
+        turn's ``new_tokens`` are appended to the context; returns the
+        gid."""
+        base = None
+        source = "manifest"
+        if self.session_store is not None:
+            m = self.session_store.load(session_id)
+            if m is not None:
+                base = np.asarray(m.token_ids, np.int64)
+        if base is None:
+            base = self._session_tokens.get(session_id)
+            source = "local"
+            if base is None and fallback_tokens is not None:
+                base = np.asarray(fallback_tokens, np.int64).reshape(-1)
+                source = "caller"
+            if base is None:
+                raise KeyError(
+                    f"session {session_id!r}: no manifest, no local "
+                    f"record, no fallback_tokens — cannot reconstruct "
+                    f"context")
+            self._session_fallback_c().inc()
+        if new_tokens is not None and len(np.atleast_1d(new_tokens)):
+            prompt = np.concatenate(
+                [base, np.asarray(new_tokens, np.int64).reshape(-1)])
+        else:
+            prompt = base
+        gid = self.submit(prompt, max_new_tokens, tenant=tenant,
+                          priority=priority, deadline_s=deadline_s,
+                          session_id=session_id)
+        self._requests[gid].resumed = True
+        spool_event("session", op="resume", session=session_id,
+                    source=source, tokens=len(prompt), gid=gid)
+        return gid
 
     def release_session(self, session_id: str,
                         delete_manifest: bool = False):
-        """Forget a session fleet-wide: unpin its chain on every replica
-        that pins, and drop its sticky routing. With no session store (the
-        port has none yet) there is no manifest to delete, as in the JAX
-        package's gateway without one."""
+        """Forget a session fleet-wide: unpin its chain on every replica,
+        drop the gateway's own record and sticky routing, and (opt-in)
+        delete the manifest."""
         for r in self.pool.replicas():
             if hasattr(r.batcher, "unpin_session"):
                 r.batcher.unpin_session(session_id)
+        self._session_tokens.pop(session_id, None)
+        self._session_last_replica.pop(session_id, None)
         if isinstance(self.router, SessionAffinityPolicy):
             self.router.forget_session(session_id)
-        from ...observability.fleet import spool_event
+        if delete_manifest and self.session_store is not None:
+            self.session_store.delete(session_id)
         spool_event("session", op="release", session=session_id,
                     deleted=int(delete_manifest))
+
+    def _session_fallback_c(self):
+        if not hasattr(self, "_session_fb_c"):
+            self._session_fb_c = get_registry().counter(
+                "session.resume_fallbacks",
+                "resumes served from local/caller context because the "
+                "manifest was missing or rejected (full re-prefill)")
+        return self._session_fb_c
 
     # -- results --------------------------------------------------------------
     def _has_work(self) -> bool:
@@ -684,8 +807,3 @@ def _stream_buffered_gauge():
     from .streaming import _stream_metrics
     return _stream_metrics()[0]
 
-
-def _no_sessions(what: str):
-    raise NotImplementedError(
-        f"{what}: durable sessions are not ported yet (ROADMAP.md, queue "
-        "1, item 1.4: the host and disk tiers, with sessions)")

@@ -18,9 +18,11 @@ pages across requests (``PagedContinuousBatcher``'s docstring). Its pool
 may hold int8 pages, with calibrated static scales (``kv_quant="int8"``)
 or per-request dynamic ones (``cache_quant="dynamic_int8"``).
 
-Not ported yet: the paged batcher's host and disk tiers with promotion
-(and their ``tier_quant``), sessions and speculative decode; the
-tensor-parallel shard group.
+The paged batcher's prefix cache may spill to host and disk tiers, whose
+chains come back by an asynchronous promotion stream, and it pins paused
+sessions' chains (``PagedContinuousBatcher``'s docstring).
+
+Not ported yet: speculative decode; the tensor-parallel shard group.
 """
 from __future__ import annotations
 
@@ -38,14 +40,16 @@ from ..device import to_torch_dtype
 from ..jit import to_static
 from ..models.generation import paged_state, select_token
 from ..observability import roofline_attr
-from ..observability.fleet import autospool_tick
+from ..observability.fleet import autospool_tick, spool_event
 from ..observability.metrics import get_registry
 from ..observability.trace_context import end_open_spans
 from ..perf.buckets import pad_amount, resolve_ladder
+from ..perf.prefetch import AsyncLoader, consume
 from ..resilience.chaos import fault_point
 from ..resilience.recovery import (DeadlineExceeded, HealthStateMachine,
                                    Overloaded)
-from .prefix_cache import RadixPrefixCache
+from .prefix_cache import DiskTier, HostTier, RadixPrefixCache, blob_nbytes
+from .session_store import SessionManifest, SessionStore, model_identity
 
 __all__ = ["ContinuousBatcher", "PagedContinuousBatcher", "Request"]
 
@@ -832,10 +836,35 @@ class PagedContinuousBatcher(_BatcherBase):
     max_queue_depth: shed with ``Overloaded`` past it. default_deadline_s:
     the deadline of requests submitted without one.
 
-    Not ported yet, each raising ``NotImplementedError`` that names its
-    ROADMAP.md item when set: ``tier_quant``, ``host_kv_gib``,
-    ``disk_kv_dir`` and ``session_store`` (queue 1, item 1.4);
-    ``draft_model``, speculative decode and its failover (item 1.5).
+    Tiers (with ``prefix_cache``): ``host_kv_gib`` (else
+    ``PADDLE_KV_HOST_GIB``) bounds a host tier that eviction demotes
+    chains into instead of dropping them, each page read off the pool in
+    one gather and one copy into host memory (pinned on the card);
+    ``disk_kv_dir`` (else ``PADDLE_KV_DISK_DIR``) adds a disk tier of
+    ``disk_kv_gib`` (else ``PADDLE_KV_DISK_GIB``, 16) below it for the
+    host tier's overflow. ``tier_quant="int8"`` stores demoted pages as
+    int8 codes with a float32 scale per head (the JAX package's numpy
+    arithmetic, bit for bit), half the bytes. A match whose tail is off
+    the device opens a promotion stream for the queue's head: the tail's
+    pages are reserved, and ``promo_chunk_blocks``-block chunks, up to
+    ``promo_slots`` at a time, are read from their tiers and copied to the
+    card on a stream of their own by ``perf.prefetch.AsyncLoader``'s
+    workers while decode steps go on; the main thread installs each
+    finished chunk at a step boundary, in place into the pools (a
+    captured graph's leaves), so the next replay reads it.
+    ``promo_timeout_s`` bounds the progress between two chunks; a stream
+    that stalls, fails or loses its pages to a live decode is cancelled
+    and its request prefills in full. ``close()`` retires the workers.
+
+    Sessions: ``pin_session`` holds a chain so that churn may demote it
+    but not drop it out of the last tier; ``pause_session`` also
+    publishes the session's manifest to ``session_store`` (a
+    ``SessionStore`` or its directory), from which ``resume_session`` on
+    any replica returns the tokens to resubmit.
+
+    Not ported yet, raising ``NotImplementedError`` that names its
+    ROADMAP.md item when set: ``draft_model``, speculative decode and its
+    failover (queue 1, item 1.5).
     """
 
     _engine = "paged"
@@ -858,13 +887,22 @@ class PagedContinuousBatcher(_BatcherBase):
                  prefix_cache: bool = False,
                  host_kv_gib: Optional[float] = None,
                  disk_kv_dir: Optional[str] = None,
+                 disk_kv_gib: Optional[float] = None,
+                 promo_timeout_s: float = 5.0,
+                 promo_slots: int = 2,
+                 promo_chunk_blocks: Optional[int] = 4,
                  session_store=None,
                  prompt_buckets=None,
                  draft_model=None):
-        # the JAX package's guards, in its order, before the options that
-        # wait: a combination it refuses raises its ValueError here too
+        # the JAX package's guards, in its order, before the option that
+        # waits: a combination it refuses raises its ValueError here too
         if policy not in ("reserve", "ondemand"):
             raise ValueError(f"unknown policy {policy!r}")
+        if promo_slots < 1:
+            raise ValueError("promo_slots must be >= 1")
+        if promo_chunk_blocks is not None and promo_chunk_blocks < 1:
+            raise ValueError("promo_chunk_blocks must be >= 1 (or None "
+                             "for one whole-tail chunk)")
         if prefix_cache and cache_quant:
             raise ValueError(
                 "prefix_cache shares pages across requests; dynamic "
@@ -947,21 +985,10 @@ class PagedContinuousBatcher(_BatcherBase):
                 raise ValueError(
                     f"fused_admission needs the slot capacity ({cap}) to "
                     f"be a multiple of prefill_chunk ({prefill_chunk})")
-        # each option with the ROADMAP.md queue 1 item that ports it
-        waiting = {"tier_quant": (tier_quant, "1.4"),
-                   "draft_model": (draft_model, "1.5"),
-                   "host_kv_gib": (host_kv_gib, "1.4"),
-                   "disk_kv_dir": (disk_kv_dir, "1.4"),
-                   "session_store": (session_store, "1.4")}
-        if prefix_cache and float(_os.environ.get("PADDLE_KV_HOST_GIB", "0")
-                                  or 0.0) > 0:
-            waiting["PADDLE_KV_HOST_GIB"] = (
-                _os.environ["PADDLE_KV_HOST_GIB"], "1.4")
-        for name, (value, item) in waiting.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"PagedContinuousBatcher: {name}={value!r} is not "
-                    f"ported yet (ROADMAP.md, queue 1, item {item})")
+        if draft_model is not None:
+            raise NotImplementedError(
+                f"PagedContinuousBatcher: draft_model={draft_model!r} is "
+                "not ported yet (ROADMAP.md, queue 1, item 1.5)")
         device = next(model.parameters()).device
         if compile and device.type != "cuda":
             raise ValueError(
@@ -1005,9 +1032,53 @@ class PagedContinuousBatcher(_BatcherBase):
         # cached full-block prefix, points the slot's block-table front at
         # the cached pages and prefills only the suffix; the tree pins pages
         # under live slots and LRU-evicts idle chains on page pressure
-        self.prefix_cache = (RadixPrefixCache(block_size) if prefix_cache
-                             else None)
+        self.prefix_cache = None
         self._slot_nodes: Dict[int, list] = {}
+        # tiered KV: one in-flight promotion stream (the queue's head only:
+        # the batcher is single-threaded, so only the head can wait),
+        # pipelined as up to promo_slots chunks of promo_chunk_blocks
+        # blocks in flight through the AsyncLoader; finished chunks install
+        # in order at step boundaries while later chunks and decode go on.
+        # _promo_denied lists requests whose promotion already failed
+        # (they prefill in full and never retry)
+        self._promo = None
+        self._promo_denied: set = set()
+        self._promoter = None
+        self.promo_timeout_s = promo_timeout_s
+        self.promo_slots = promo_slots
+        self.promo_chunk_blocks = promo_chunk_blocks
+        self._demoted_seen = 0      # cache.demoted_bytes already countered
+        # durable sessions: session id -> its session-pinned node chain,
+        # and the shared manifest store that makes a pause resumable on
+        # any replica
+        self.session_store = (SessionStore(session_store)
+                              if isinstance(session_store, str)
+                              else session_store)
+        self._session_pins: Dict[str, list] = {}
+        if prefix_cache:
+            host_gib = (host_kv_gib if host_kv_gib is not None else
+                        float(_os.environ.get("PADDLE_KV_HOST_GIB", "0")
+                              or 0.0))
+            host_tier = None
+            if host_gib > 0:
+                ddir = disk_kv_dir or _os.environ.get("PADDLE_KV_DISK_DIR")
+                nxt = None
+                if ddir:
+                    dgib = (disk_kv_gib if disk_kv_gib is not None else
+                            float(_os.environ.get("PADDLE_KV_DISK_GIB",
+                                                  "16") or 16.0))
+                    nxt = DiskTier(ddir, int(dgib * (1 << 30)))
+                host_tier = HostTier(int(host_gib * (1 << 30)),
+                                     next_tier=nxt)
+            self.prefix_cache = RadixPrefixCache(
+                block_size, host_tier=host_tier,
+                spill=self._read_page_blob if host_tier is not None
+                else None)
+            if host_tier is not None:
+                self._promoter = AsyncLoader(
+                    depth=max(2, promo_slots),
+                    device=device if device.type == "cuda" else None,
+                    workers=max(1, promo_slots))
         self._prompt_ladder = resolve_ladder(prompt_buckets, hi=s_max)
         reg = get_registry()
         self._prefix_hit_c = reg.counter(
@@ -1034,9 +1105,42 @@ class PagedContinuousBatcher(_BatcherBase):
         self._kv_quant_saved_g = reg.gauge(
             "serving.kv_quant_bytes_saved",
             "pool bytes saved by int8 KV pages vs the model fp dtype")
+        self._promote_h = reg.histogram(
+            "serving.prefix_promotion_seconds",
+            "host->device prefix promotion latency (submit to install)")
+        self._promo_c = reg.counter(
+            "serving.prefix_promotions",
+            "prefix pages promoted host/disk -> device")
+        self._promo_fail_c = reg.counter(
+            "serving.prefix_promotion_failures",
+            "promotions that failed/timed out/lost the page race "
+            "(admission degraded to full prefill)")
+        self._demote_bytes_c = reg.counter(
+            "serving.prefix_demoted_bytes",
+            "KV bytes spilled device -> host tier on eviction")
+        self._demote_h = reg.histogram(
+            "serving.prefix_demotion_seconds",
+            "device->host read of one demoted page (gather, optional "
+            "int8 quantization, copy to host memory)")
+        self._host_bytes_g = reg.gauge(
+            "serving.kv_host_bytes",
+            "bytes currently held by the host KV tier")
+        self._spill_raw_c = reg.counter(
+            "serving.prefix_spill_raw_bytes",
+            "pre-quantization KV bytes demoted to the host tier "
+            "(what the spill WOULD cost stored raw)")
+        self._spill_blob_c = reg.counter(
+            "serving.prefix_spill_blob_bytes",
+            "as-stored KV bytes demoted to the host tier (int8+scales "
+            "when tier_quant is on; equals raw otherwise)")
+        self._dequant_h = reg.histogram(
+            "quant.dequant_seconds",
+            "main-thread blob dequantize time when installing promoted "
+            "tier chunks (the overhead tier_quant pays on promotion)")
 
         self.cache_quant = cache_quant
         self.kv_quant = kv_quant
+        self.tier_quant = tier_quant
         pool = model.paged_alloc(n_pages + 1, block_size,
                                  cache_dtype="int8" if cache_quant else None)
         # a calibrated model allocates int8 pages with or without
@@ -1135,8 +1239,10 @@ class PagedContinuousBatcher(_BatcherBase):
         return torch.from_numpy(array).to(self._device)
 
     def close(self):
-        """The JAX package retires its promotion worker here; with no tiers
-        ported there is nothing to retire."""
+        """Retire the async promotion workers (idempotent; they are daemon
+        threads, so skipping this only delays cleanup)."""
+        if self._promoter is not None:
+            self._promoter.close()
 
     # -- page accounting ----------------------------------------------------
     def _pages_for(self, n_rows: int) -> int:
@@ -1172,14 +1278,263 @@ class PagedContinuousBatcher(_BatcherBase):
             n += self.prefix_cache.evictable_pages()
         return n
 
+    # -- tiered KV: demotion and async promotion ----------------------------
     def _evict_cache_pages(self, n: int) -> List[int]:
-        """Reclaim up to n pages from the prefix cache into the free
-        list."""
+        """Reclaim up to n pages from the prefix cache (demoting to the
+        host tier when one is attached), mirroring the demoted-byte delta
+        into the counter."""
         freed = self.prefix_cache.evict(n)
         if freed:
             self._free_pages.extend(freed)
             self._prefix_evict_c.inc(len(freed))
+        d = self.prefix_cache.demoted_bytes - self._demoted_seen
+        if d:
+            self._demote_bytes_c.inc(d)
+            self._demoted_seen = self.prefix_cache.demoted_bytes
         return freed
+
+    @staticmethod
+    def _quant_page(arr: torch.Tensor):
+        """Per-head symmetric int8 quantization of KV page rows ``[...,
+        H, block, D]``: (int8 codes, float32 dequant scale ``[..., H, 1,
+        1]``), the JAX package's numpy float32 arithmetic bit for bit:
+        amax over (block, D), scale amax / 127 (1 where amax is 0, so
+        all-zero padding round-trips exactly), codes clip(rint(a /
+        scale)). Both divisions divide by a tensor: on the card a division
+        by a Python number multiplies by its reciprocal, which can differ
+        in the last bit. ``torch.round`` rounds half to even, as
+        ``np.rint`` does."""
+        a = arr.float()
+        amax = a.abs().amax(dim=(-2, -1), keepdim=True)
+        scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                            torch.ones_like(amax))
+        q = torch.round(a / scale).clamp_(-127, 127).to(torch.int8)
+        return q, scale
+
+    @staticmethod
+    def _dequant_rows(codes: torch.Tensor, scales: torch.Tensor):
+        return codes.float() * scales
+
+    def _host_copy(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``t`` (pinned for a card tensor; the copy is
+        queued, and the caller synchronizes once for all of them)."""
+        if not t.is_cuda:
+            return t
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t, non_blocking=True)
+        return out
+
+    def _read_page_blob(self, node):
+        """The cache's spill callback: read one node's KV rows off the pool
+        into host memory. Every layer's K and V rows of the page come out
+        in one gather, ``[L, 2, KV, block, D]``, and one copy (one
+        synchronization), not one per layer.
+
+        With ``tier_quant='int8'`` the rows are quantized on the pool's
+        device before the copy, so half the bytes cross the bus: the blob
+        holds the codes under ``t`` and the per-head scales under ``ts``
+        (the key marks a quantized blob; ``_install_chunk`` dequantizes on
+        promotion), about half of what a chain costs the host and disk
+        budgets. An int8 pool (static calibration) never takes this path:
+        its pages spill int8 as they are and reinstall verbatim."""
+        t0 = _time.perf_counter()
+        page = int(node.page)
+        layers = self._state["layers"]
+        rows = torch.stack([t[page] for kv in layers for t in kv])
+        rows = rows.view(len(layers), 2, *rows.shape[1:])
+        raw = blob_nbytes(rows)
+        if self.tier_quant:
+            codes, scales = self._quant_page(rows)
+            blob = {"t": self._host_copy(codes),
+                    "ts": self._host_copy(scales)}
+        else:
+            blob = {"t": self._host_copy(rows)}
+        if rows.is_cuda:
+            torch.cuda.current_stream(rows.device).synchronize()
+        self._spill_raw_c.inc(raw)
+        self._spill_blob_c.inc(blob_nbytes(blob))
+        self._demote_h.observe(_time.perf_counter() - t0)
+        return blob
+
+    def _submit_promo_chunk(self, promo) -> bool:
+        """Move one waiting chunk into flight. Its blobs are read off their
+        tiers in the worker (a callable payload the loader materializes
+        before the copy), so a later chunk's host or disk read overlaps an
+        earlier chunk's main-thread install and the copies in flight. Safe
+        because every stream node carries ``node.promo`` and a pin for the
+        duration: the evictors skip it, so its tier blob cannot move under
+        the worker. A read error fails the chunk's future and the poller
+        cancels the stream; False here only means the submit itself failed
+        (the loader closed)."""
+        chunk = promo["waiting"].pop(0)
+        nodes = list(chunk["nodes"])
+        cache = self.prefix_cache
+
+        def _read():
+            blobs = [cache.node_blob(n) for n in nodes]
+            # a worker-side write, published to the main thread by the
+            # future's event: read only after done()
+            chunk["nbytes"] = [blob_nbytes(b) for b in blobs]
+            return blobs
+
+        try:
+            chunk["future"] = self._promoter.submit(_read)
+        except Exception:
+            promo["waiting"].insert(0, chunk)
+            return False
+        promo["chunks"].append(chunk)
+        return True
+
+    def _start_promotion(self, req, dev: list, tail: list) -> bool:
+        """Open a pipelined promotion stream for the off-device tail of
+        ``req``'s matched path. Pins the whole path (the device prefix too:
+        eviction must not demote what the request is about to use) and
+        reserves one target page per tail node up front, so a finished
+        transfer always has somewhere to land. The tail is split into
+        ``promo_chunk_blocks``-block chunks, up to ``promo_slots`` of them
+        in flight at once. False (nothing pinned, nothing reserved) if
+        pages cannot be found or chaos says no: the caller falls back to a
+        prefill after the device prefix."""
+        try:
+            fault_point("kv.host_promote")
+        except Exception:
+            self._promo_fail_c.inc()
+            self.prefix_cache.promotion_failures += 1
+            self._promo_denied.add(req.rid)
+            return False
+        pinned = dev + tail
+        self.prefix_cache.pin(pinned)
+        need = len(tail)
+        if need > len(self._free_pages):
+            self._evict_cache_pages(need - len(self._free_pages))
+        if need > len(self._free_pages):
+            self.prefix_cache.unpin(pinned)
+            return False
+        pages = [self._free_pages.pop() for _ in range(need)]
+        csize = self.promo_chunk_blocks or len(tail)
+        t0 = _time.perf_counter()
+        promo = {"req": req, "pinned": pinned,
+                 # nodes and pages shrink as chunks install: they are the
+                 # not-yet-installed rest (the audit's and cancel's view)
+                 "nodes": list(tail), "pages": list(pages),
+                 "chunks": [],    # in flight, in order
+                 "waiting": [{"nodes": tail[i:i + csize],
+                              "pages": pages[i:i + csize],
+                              "src_tiers": [n.residency
+                                            for n in tail[i:i + csize]]}
+                             for i in range(0, len(tail), csize)],
+                 "t0": t0, "deadline": t0 + self.promo_timeout_s,
+                 "installed_rows": 0, "src_tiers": []}
+        while promo["waiting"] and len(promo["chunks"]) < self.promo_slots:
+            if not self._submit_promo_chunk(promo):
+                for ch in promo["chunks"] + promo["waiting"]:
+                    self._free_pages.extend(ch["pages"])
+                self.prefix_cache.unpin(pinned)
+                self._promo_fail_c.inc()
+                self.prefix_cache.promotion_failures += 1
+                self._promo_denied.add(req.rid)
+                # chunks already in flight are orphaned to the worker;
+                # their staged tensors are dropped on arrival
+                return False
+        self._promo = promo
+        for n in tail:
+            n.promo = promo
+        return True
+
+    def _cancel_promotion(self, deny: bool):
+        """Abandon the promotion stream: every chunk not yet installed
+        gives its reserved pages back to the pool, and the path is
+        unpinned. Chunks already installed stay (cache-owned device pages
+        now: a partial promotion deepens the device prefix). ``deny``
+        marks a failure (timeout, error, pages lost to a live decode): the
+        request will not retry and prefills in full; deny=False is the
+        benign path where the head of the queue changed."""
+        promo, self._promo = self._promo, None
+        for n in promo["nodes"]:
+            n.promo = None
+        self.prefix_cache.unpin(promo["pinned"])
+        self._free_pages.extend(promo["pages"])
+        if deny:
+            self._promo_fail_c.inc()
+            self.prefix_cache.promotion_failures += 1
+            self._promo_denied.add(promo["req"].rid)
+
+    def _install_chunk(self, promo, chunk, staged):
+        """Land one finished chunk's staged blobs in the pool and hand its
+        pages to the cache. Main thread only, and in place: each layer's
+        pool tensor takes the chunk's pages by one ``index_copy_`` into
+        its own storage, so the captured graphs, whose leaves the pools
+        are, read the promoted pages at their next replay. On the card the
+        main stream first waits on the chunk's copy event."""
+        consume(chunk["future"], staged)
+        rows = []
+        for blob in staged:
+            if blob.get("ts") is not None:
+                # a tier_quant blob: codes and scales back to float before
+                # the pool write, timed (the promotion-side cost tier_quant
+                # pays)
+                tq0 = _time.perf_counter()
+                rows.append(self._dequant_rows(blob["t"], blob["ts"]))
+                self._dequant_h.observe(_time.perf_counter() - tq0)
+            else:
+                rows.append(blob["t"])
+        rows = torch.stack(rows)               # [n, L, 2, KV, block, D]
+        idx = torch.tensor(chunk["pages"], dtype=torch.long,
+                           device=self._device)
+        for li, (kc, vc) in enumerate(self._state["layers"]):
+            kc.index_copy_(0, idx, rows[:, li, 0].to(kc.dtype))
+            vc.index_copy_(0, idx, rows[:, li, 1].to(vc.dtype))
+        for node, page, nb in zip(chunk["nodes"], chunk["pages"],
+                                  chunk["nbytes"]):
+            self.prefix_cache.promote_node(node, page, nb)
+            node.promo = None
+        promo["installed_rows"] += len(chunk["nodes"]) * self.block_size
+        promo["src_tiers"].extend(chunk["src_tiers"])
+        done = set(id(n) for n in chunk["nodes"])
+        promo["nodes"] = [n for n in promo["nodes"] if id(n) not in done]
+        drop = set(chunk["pages"])
+        promo["pages"] = [p for p in promo["pages"] if p not in drop]
+
+    def _poll_promotion(self) -> str:
+        """Advance the promotion stream: 'pending' while transfers run
+        (decode steps go on: that is the overlap), 'ok' once every chunk
+        has installed at a step boundary, 'failed' on an error or timeout
+        (the remaining reserved pages reclaimed; chunks already installed
+        stay, deepening the device prefix). Each finished chunk refreshes
+        the deadline: the timeout bounds progress, not the stream's total
+        time, so a long cold resume is not penalized for its length."""
+        promo = self._promo
+        while promo["chunks"]:
+            head = promo["chunks"][0]
+            fut = head["future"]
+            if not fut.done():
+                if _time.perf_counter() < promo["deadline"]:
+                    return "pending"
+                self._cancel_promotion(deny=True)
+                return "failed"
+            try:
+                staged = fut.result()
+            except Exception:
+                self._cancel_promotion(deny=True)
+                return "failed"
+            self._install_chunk(promo, head, staged)
+            promo["chunks"].pop(0)
+            promo["deadline"] = _time.perf_counter() + self.promo_timeout_s
+            while (promo["waiting"]
+                   and len(promo["chunks"]) < self.promo_slots):
+                if not self._submit_promo_chunk(promo):
+                    self._cancel_promotion(deny=True)
+                    return "failed"
+        if promo["waiting"]:           # pragma: no cover — defensive
+            self._cancel_promotion(deny=True)
+            return "failed"
+        self.prefix_cache.unpin(promo["pinned"])
+        self._promote_h.observe(_time.perf_counter() - promo["t0"])
+        self._promo_c.inc(promo["installed_rows"] // self.block_size)
+        self._promo_installed_rows = promo["installed_rows"]
+        self._promo_src_tiers = list(promo["src_tiers"])
+        self._promo = None
+        return "ok"
 
     def _release_row(self, row: np.ndarray, keep=()):
         """Reset a block-table row to scratch, returning its pages to the
@@ -1221,6 +1576,9 @@ class PagedContinuousBatcher(_BatcherBase):
         if self._admitting is not None:
             used.update(int(b) for b in self._admitting["row"]
                         if b != self._scratch)
+        if self._promo is not None:
+            # pages reserved for an in-flight promotion are spoken for
+            used.update(int(p) for p in self._promo["pages"])
         cache_pages = set()
         if self.prefix_cache is not None:
             cp = self.prefix_cache.pages()
@@ -1239,12 +1597,94 @@ class PagedContinuousBatcher(_BatcherBase):
                 f"page accounting bug: leaked={sorted(leaked)} "
                 f"free-but-used={sorted(double)}")
         if self.prefix_cache is not None:
-            self.prefix_cache.audit_tiers()
+            # the cross-tier half: host and disk blob bytes reconcile too
+            rep = self.prefix_cache.audit_tiers()
+            self._host_bytes_g.set(rep.get("host_bytes", 0))
         return 0
 
     @property
     def free_page_count(self) -> int:
         return len(self._free_pages)
+
+    # -- durable sessions ---------------------------------------------------
+    def _session_gauge(self):
+        if not hasattr(self, "_session_pin_g"):
+            self._session_pin_g = get_registry().gauge(
+                "session.pinned_blocks",
+                "prefix-cache blocks currently held by session pins")
+        return self._session_pin_g
+
+    def model_identity(self) -> str:
+        return model_identity(self.model)
+
+    def pin_session(self, session_id: str, token_ids) -> int:
+        """Session-pin the cached chain covering ``token_ids``' full blocks
+        (replacing any earlier pin for this id): churn may demote the
+        chain to host or disk but can no longer drop it out of the last
+        tier, so a resume finds it promotable. Local only: durability
+        across replicas is the manifest's job (``pause_session``). Returns
+        the number of pinned blocks."""
+        if self.prefix_cache is None:
+            return 0
+        self.unpin_session(session_id)
+        path = self.prefix_cache.match(token_ids)
+        if path:
+            self.prefix_cache.session_pin(path)
+            self._session_pins[session_id] = path
+        self._session_gauge().set(
+            sum(len(p) for p in self._session_pins.values()))
+        spool_event("session", op="pin", session=session_id,
+                    blocks=len(path))
+        return len(path)
+
+    def unpin_session(self, session_id: str) -> bool:
+        nodes = self._session_pins.pop(session_id, None)
+        if not nodes:
+            return False
+        self.prefix_cache.session_unpin(nodes)
+        self._session_gauge().set(
+            sum(len(p) for p in self._session_pins.values()))
+        return True
+
+    def release_sessions(self):
+        """Drop every local session pin (manifests are untouched: the
+        sessions stay resumable elsewhere). The close and remove path."""
+        for sid in list(self._session_pins):
+            self.unpin_session(sid)
+
+    def pause_session(self, session_id: str, token_ids) -> bool:
+        """Pause a conversation: pin its chain locally and publish the
+        crash-safe manifest (id -> chain hashes, tokens, model identity) to
+        the shared store, so any replica can resume it later. True iff the
+        manifest published atomically; on a torn publish (chaos, IO) the
+        chain stays pinned locally: a resume here still rides the cache, one
+        elsewhere falls back to a re-prefill."""
+        self.pin_session(session_id, token_ids)
+        if self.session_store is None:
+            return False
+        toks = np.asarray(token_ids, np.int64).reshape(-1)
+        m = SessionManifest(session_id=session_id,
+                            token_ids=[int(t) for t in toks],
+                            block_size=self.block_size,
+                            model=self.model_identity())
+        return self.session_store.publish(m)
+
+    def resume_session(self, session_id: str):
+        """Resolve a paused session to the token ids to resubmit (``prompt
+        + generated`` of the paused turn: submitting them and the new turn
+        re-matches the pinned chain and streams its promotion). None when
+        the manifest is missing, torn or corrupt, or the model identity
+        changed (a typed finding in the store; the caller prefills from its
+        own context, token-exact either way)."""
+        if self.session_store is None:
+            return None
+        m = self.session_store.load(session_id,
+                                    expect_model=self.model_identity())
+        if m is None:
+            return None
+        # a block size mismatch only invalidates the manifest's chain
+        # hashes (a routing hint); the radix tree matches raw token blocks
+        return np.asarray(m.token_ids, np.int64)
 
     # -- request lifecycle --------------------------------------------------
     def _validate(self, prompt: np.ndarray, max_new_tokens: int):
@@ -1298,18 +1738,55 @@ class PagedContinuousBatcher(_BatcherBase):
         first step). The queue's head blocks those behind it, which keeps
         arrival order. Returns rids that finished at admission."""
         finished = []
+        if self._promo is not None and (
+                not self._pending
+                or self._pending[0] is not self._promo["req"]):
+            # the promotion's request left the head (expired, aborted):
+            # a benign cancel, its pages back
+            self._cancel_promotion(deny=False)
         while self._pending and self._free_slots:
             req = self._pending[0]
             matched = []
+            promoted_rows = 0
+            src_tiers: List[str] = []
             if self.prefix_cache is not None:
                 ids_full = np.concatenate(
                     [req.prompt, np.asarray(req.tokens, np.int64)]) \
                     if req.tokens else req.prompt
                 # at least one suffix token must prefill: the first
                 # generated token needs its logits
-                matched = self.prefix_cache.match(
-                    ids_full, max_blocks=(len(ids_full) - 1)
-                    // self.block_size)
+                cap_blocks = (len(ids_full) - 1) // self.block_size
+                matched = self.prefix_cache.match(ids_full,
+                                                  max_blocks=cap_blocks)
+                dev, tail = self.prefix_cache.split_device(matched)
+                if self._promo is not None:
+                    st = self._poll_promotion()
+                    if st == "pending":
+                        if not self._slot_req:
+                            # nothing to overlap with: do not spin the
+                            # step loop while the transfer lands
+                            _time.sleep(500e-6)
+                        break
+                    # ok: the tail is on the device now; failed: it stays
+                    # off and is prefilled below. Either way split the
+                    # tree's new state again
+                    matched = self.prefix_cache.match(ids_full,
+                                                      max_blocks=cap_blocks)
+                    dev, tail = self.prefix_cache.split_device(matched)
+                    matched = dev
+                    if st == "ok":
+                        promoted_rows = self._promo_installed_rows
+                        src_tiers = self._promo_src_tiers
+                elif (tail and self._promoter is not None
+                        and req.rid not in self._promo_denied):
+                    if self._start_promotion(req, dev, tail):
+                        break     # decode steps go on while it flies
+                    matched = dev
+                else:
+                    # an off-device tail that cannot be used (no promoter,
+                    # or this request's promotion already failed): prefill
+                    # it; insert() upgrades the stale nodes in place
+                    matched = dev
                 if matched:
                     # pin before the availability gate: the gate may admit
                     # on the promise of evicting other chains, and eviction
@@ -1324,6 +1801,7 @@ class PagedContinuousBatcher(_BatcherBase):
                 break
             with self._intake:
                 self._pending.pop(0)
+            self._promo_denied.discard(req.rid)
             slot = self._free_slots.pop(0)
             if matched:
                 self._bt[slot, :len(matched)] = [n.page for n in matched]
@@ -1368,16 +1846,24 @@ class PagedContinuousBatcher(_BatcherBase):
             if self.prefix_cache is not None:
                 self._prefix_hit_c.inc(m_rows)
                 self._prefix_miss_c.inc(S)
-                self._tier_hit_c.labels(tier="device").inc(m_rows)
                 self.prefix_cache.hit_tokens += m_rows
                 self.prefix_cache.miss_tokens += S
+                self._tier_hit_c.labels(tier="device").inc(
+                    m_rows - promoted_rows)
+                for t in src_tiers:
+                    self._tier_hit_c.labels(tier=t).inc(self.block_size)
+                self.prefix_cache.host_hit_tokens += promoted_rows
                 new_nodes = self.prefix_cache.insert(
                     ids_np, self._bt[slot], len(matched),
                     L // self.block_size)
                 self._slot_nodes[slot] = list(matched) + new_nodes
-            self._trace_prefill_end(req, prompt_tokens=len(ids_np),
-                                    pages=need, prefix_hit=m_rows,
-                                    padded_to=padded_len)
+            end_tags = dict(prompt_tokens=len(ids_np), pages=need,
+                            prefix_hit=m_rows, padded_to=padded_len)
+            if promoted_rows:
+                # a promoted resume repaid its eviction from a tier, not by
+                # recomputing
+                end_tags["host_promoted"] = promoted_rows
+            self._trace_prefill_end(req, **end_tags)
             tok = int(self._pick(logits.float().cpu().numpy())[0])
             req.slot = slot
             req.tokens.append(tok)
@@ -1542,12 +2028,19 @@ class PagedContinuousBatcher(_BatcherBase):
 
     def _grow_for_step(self):
         """ondemand: every active slot is about to write kv row dec[slot];
-        back it with a page, preempting (other slots, then an in-flight
-        fused admission) if the pool is dry."""
+        back it with a page, cancelling an in-flight promotion, then
+        preempting (other slots, then an in-flight fused admission) if the
+        pool is dry."""
         for slot in list(self._admit_order):
             if slot not in self._slot_req:
                 continue
             while not self._alloc_pages(slot, int(self._dec[slot]) + 1):
+                if self._promo is not None:
+                    # an in-flight promotion loses the race to a live
+                    # decode: reclaim its reserved pages before touching
+                    # any live request (its admission prefills in full)
+                    self._cancel_promotion(deny=True)
+                    continue
                 if self._preempt_latest(protect=slot):
                     continue
                 if self._admitting is not None:

@@ -2,13 +2,19 @@
 ``paddle_tpu/resilience/chaos.py``).
 
 A registry of NAMED fault points woven into the hot seams. The port
-instruments two so far:
+instruments these so far:
 
   * ``serving.step`` -- the continuous batcher's step
     (``inference/serving.py``);
   * ``gateway.step.<replica>`` -- one named replica's step in the
     gateway's pool (``inference/gateway/replica.py``); an error there
-    bypasses the pool's retry policy and declares the replica dead.
+    bypasses the pool's retry policy and declares the replica dead;
+  * ``kv.host_demote`` and ``kv.host_promote`` -- the tiered KV cache's
+    demotion (``inference/prefix_cache.py``) and promotion
+    (``inference/serving.py``);
+  * ``kv.session_publish`` (through ``torn_write_bytes``) and
+    ``kv.session_resume`` -- the session manifests
+    (``inference/session_store.py``).
 
 Fault kinds: ``delay`` (sleep), ``transient_error`` (raise a retryable
 ``TransientChaosError``), ``torn_write`` and ``nan_grad`` (returned to the
@@ -30,9 +36,9 @@ i.e. ``;``-separated entries, each ``point:kind[:k=v,...]``, with an
 optional ``seed=N`` entry applying to the whole scenario.
 
 Not ported yet: arming from the environment (``PADDLE_CHAOS``), which no
-caller in the port needs; the torn-write file helper and the other seams'
-points (checkpoint writes, collectives, the KV store, the data loader, the
-train step), whose modules are not ported.
+caller in the port needs, and the other seams' points (checkpoint writes,
+collectives, the data loader, the train step), whose modules are not
+ported.
 """
 from __future__ import annotations
 
@@ -44,9 +50,9 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 __all__ = [
-    "ChaosError", "TransientChaosError", "FaultSpec",
+    "ChaosError", "TransientChaosError", "TornWrite", "FaultSpec",
     "ChaosRegistry", "fault_point", "arm_scenario",
-    "disarm", "parse_scenario", "FAULT_KINDS",
+    "disarm", "parse_scenario", "torn_write_bytes", "FAULT_KINDS",
 ]
 
 FAULT_KINDS = ("delay", "transient_error", "torn_write", "nan_grad",
@@ -59,6 +65,14 @@ class ChaosError(RuntimeError):
 
 class TransientChaosError(ChaosError):
     """A retryable injected failure."""
+
+
+class TornWrite(ChaosError):
+    """Injected crash mid-write: the file was truncated at ``offset``."""
+
+    def __init__(self, msg: str, offset: int):
+        super().__init__(msg)
+        self.offset = offset
 
 
 @dataclass
@@ -240,3 +254,24 @@ def arm_scenario(spec: str) -> ChaosRegistry:
 
 def disarm():
     _CHAOS.clear()
+
+
+# -- torn-write plumbing -----------------------------------------------------
+
+def torn_write_bytes(path: str, data: bytes, point: str = "checkpoint.write"):
+    """Write `data` to `path` honoring an armed ``torn_write`` fault: the
+    fault cuts the file at ``spec.offset`` bytes and raises ``TornWrite``
+    — exactly what a mid-write kill leaves on disk. Other kinds at the
+    point (delay/transient_error) apply BEFORE any byte lands."""
+    spec = fault_point(point)
+    if spec is not None and spec.kind == "torn_write":
+        cut = max(0, min(spec.offset, len(data)))
+        with open(path, "wb") as f:
+            f.write(data[:cut])
+            f.flush()
+            os.fsync(f.fileno())
+        raise TornWrite(
+            f"injected torn write at {point}: {cut}/{len(data)} bytes of "
+            f"{path!r} written before the crash", cut)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -26,8 +26,9 @@ and must agree:
   affinity over two paged replicas with the radix cache. Tokens, routing,
   the series and the page audits must equal the JAX gateway's.
 - The unported parts raise ``NotImplementedError`` naming their
-  ``ROADMAP.md`` item: sessions with a store, tensor-parallel shard
-  groups, speculation, the lock witness and the self-healing loop.
+  ``ROADMAP.md`` item: tensor-parallel shard groups, speculation, the lock
+  witness and the self-healing loop. Sessions with a store are held to
+  the JAX gateway in tests/test_torch_sessions.py.
 
 The model scenarios use tests/test_torch_gpt2_serving.py's shapes (the
 dense prefill of one 16-token row and decode at batch 2 and s_max 32; the
@@ -866,14 +867,17 @@ def test_the_port_s_flight_ring_reads_back_in_the_jax_package(
 
 
 def test_unported_parts_raise_by_name(monkeypatch):
+    """The parts still to port raise naming their item; sessions (item 1.4,
+    ported) give the JAX gateway's typed errors without a store
+    (tests/test_torch_sessions.py holds them with one)."""
     gw = p_gw.Gateway()
-    for fn in (lambda: p_gw.Gateway(session_store="sessions"),
-               lambda: gw.pause_session("s0"),
-               lambda: gw.resume_session("s0", new_tokens=[1])):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1, item 1.4"):
-            fn()
+    ref = j_gw.Gateway()
+    for name, args in (("pause_session", ("s0",)),
+                       ("resume_session", ("s0", [1]))):
+        assert (_error(lambda: getattr(gw, name)(*args))
+                == _error(lambda: getattr(ref, name)(*args)))
     gw.release_session("s0", delete_manifest=True)      # no store: no-op
+    assert gw.session_store is None
 
     class Sharded(FakeBatcher):
         shard_group = object()

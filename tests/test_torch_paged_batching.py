@@ -38,7 +38,7 @@ from paddle_tpu.models import LlamaForCausalLM as JaxLlama
 from paddle_tpu.models import llama_tiny_config as jax_tiny_config
 from paddle_tpu.observability import metrics as jax_metrics
 from paddle_tpu_torch import jit
-from paddle_tpu_torch.inference import (PagedContinuousBatcher,
+from paddle_tpu_torch.inference import (HostTier, PagedContinuousBatcher,
                                         RadixPrefixCache, chain_hashes)
 from paddle_tpu_torch.models import (LlamaForCausalLM,
                                      llama_state_from_paddle_tpu,
@@ -451,23 +451,76 @@ def test_compile_on_a_cpu_model_raises(models):
         PagedContinuousBatcher(models[64][1], max_batch=2, s_max=32)
 
 
+def _tier_layout(b):
+    """What a batcher built of the tiers and sessions: the host and disk
+    tiers' capacities, the promotion settings, the store's type."""
+    cache = b.prefix_cache
+    host = cache.host_tier if cache is not None else None
+    disk = host.next_tier if host is not None else None
+    return [cache is not None, b.tier_quant,
+            None if host is None else host.capacity_bytes,
+            None if disk is None else disk.capacity_bytes,
+            b._promoter is not None, b.promo_slots, b.promo_chunk_blocks,
+            b.promo_timeout_s, type(b.session_store).__name__]
+
+
 @pytest.mark.parametrize("kw", [
     dict(tier_quant="int8", prefix_cache=True), dict(draft_model=object()),
     dict(host_kv_gib=1.0), dict(disk_kv_dir="kv"),
     dict(session_store="sessions")], ids=lambda kw: next(iter(kw)))
-def test_options_that_wait_raise(models, kw):
-    with pytest.raises(NotImplementedError, match=next(iter(kw))):
-        PagedContinuousBatcher(models[64][1], max_batch=2, s_max=32,
-                               compile=False, **kw)
+def test_options_that_wait_raise(models, kw, tmp_path):
+    """draft_model waits for queue 1, item 1.5; the tier and session
+    options (item 1.4) build what the JAX package builds from them, with
+    the prefix cache and without it."""
+    name = next(iter(kw))
+    if name == "draft_model":
+        with pytest.raises(NotImplementedError, match="item 1.5"):
+            PagedContinuousBatcher(models[64][1], max_batch=2, s_max=32,
+                                   compile=False, **kw)
+        return
+    kw = {k: str(tmp_path / v) if k in ("disk_kv_dir", "session_store")
+          else v for k, v in kw.items()}
+    for extra in (dict(prefix_cache=True, host_kv_gib=0.5),
+                  dict(prefix_cache=False)):
+        args = dict(max_batch=2, s_max=32, compile=False, **{**extra, **kw})
+        got = PagedContinuousBatcher(models[64][1], **args)
+        ref = jax_serving.PagedContinuousBatcher(models[64][0], **args)
+        try:
+            assert _tier_layout(got) == _tier_layout(ref)
+        finally:
+            got.close()
+            ref.close()
 
 
-def test_host_tier_from_the_environment_raises(models, monkeypatch):
+def test_host_tier_from_the_environment_raises(models, monkeypatch,
+                                               tmp_path):
+    """PADDLE_KV_HOST_GIB, PADDLE_KV_DISK_DIR and PADDLE_KV_DISK_GIB build
+    the tiers as in the JAX package (they raised before item 1.4)."""
     monkeypatch.setenv("PADDLE_KV_HOST_GIB", "1")
-    with pytest.raises(NotImplementedError, match="PADDLE_KV_HOST_GIB"):
-        PagedContinuousBatcher(models[64][1], max_batch=2, s_max=32,
-                               compile=False, prefix_cache=True)
-    with pytest.raises(NotImplementedError, match="tiers"):
-        RadixPrefixCache(4, host_tier=object())
+    monkeypatch.setenv("PADDLE_KV_DISK_DIR", str(tmp_path / "kv"))
+    monkeypatch.setenv("PADDLE_KV_DISK_GIB", "0.5")
+    args = dict(max_batch=2, s_max=32, compile=False, prefix_cache=True)
+    got = PagedContinuousBatcher(models[64][1], **args)
+    ref = jax_serving.PagedContinuousBatcher(models[64][0], **args)
+    try:
+        assert _tier_layout(got) == _tier_layout(ref)
+        assert _tier_layout(got)[2:4] == [1 << 30, 1 << 29]
+    finally:
+        got.close()
+        ref.close()
+    with pytest.raises(ValueError, match="capacity"):
+        RadixPrefixCache(4, host_tier=HostTier(0))
+    for bad in (dict(promo_slots=0), dict(promo_chunk_blocks=0),
+                dict(promo_slots=0, policy="lazy"),
+                dict(promo_chunk_blocks=0, prefix_cache=True,
+                     cache_quant="dynamic_int8")):
+        errors = []
+        for cls, m in ((PagedContinuousBatcher, models[64][1]),
+                       (jax_serving.PagedContinuousBatcher, models[64][0])):
+            with pytest.raises(ValueError) as info:
+                cls(m, compile=False, **bad)
+            errors.append(str(info.value))
+        assert errors[0] == errors[1]
 
 
 # -- the radix tree alone -----------------------------------------------------

@@ -629,14 +629,24 @@ def test_refused_configurations_raise_the_jax_packages_errors(models, case):
 
 
 def test_options_that_wait_name_their_roadmap_items(models):
-    """tier_quant passes the JAX package's checks and then waits for the
-    host tier (queue 1, item 1.4), as the tiers themselves do."""
-    pm = models["llama"][1]
-    for kw, item in ((dict(tier_quant="int8", prefix_cache=True), "1.4"),
-                     (dict(host_kv_gib=1.0), "1.4"),
-                     (dict(draft_model=object()), "1.5")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            PagedContinuousBatcher(pm, compile=False, **GEOM, **kw)
+    """tier_quant passes the JAX package's checks and builds the same
+    quantizing host tier (queue 1, item 1.4, ported; its codes are held in
+    tests/test_torch_kv_tier.py); draft_model still waits for item 1.5."""
+    jm, pm = models["llama"]
+    for kw in (dict(tier_quant="int8", prefix_cache=True, host_kv_gib=1.0),
+               dict(host_kv_gib=1.0)):
+        built = []
+        for cls, m in ((PagedContinuousBatcher, pm),
+                       (jax_serving.PagedContinuousBatcher, jm)):
+            b = cls(m, compile=False, **GEOM, **kw)
+            host = b.prefix_cache.host_tier if b.prefix_cache else None
+            built.append([b.tier_quant, getattr(host, "capacity_bytes",
+                                                None)])
+            b.close()
+        assert built[0] == built[1]
+    with pytest.raises(NotImplementedError, match="item 1.5"):
+        PagedContinuousBatcher(pm, compile=False, **GEOM,
+                               draft_model=object())
 
 
 # -- int8 weights -----------------------------------------------------------
