@@ -212,6 +212,35 @@ Phases, each printing JSON lines (any failure exits non-zero):
    replicas with a manifest store: pause, churn, the holding replica
    killed by chaos, resume on the survivor from the manifest, release;
    its turns against a lone batcher's within twice the spread.
+4i. spec: speculative decoding. A (after tiers, on its Llama-2-7B):
+   generate_paged_speculative (a 512-token prompt, 128 new, draft_k 4,
+   block 64, its steps CUDA graphs) with three drafts: LLaMA-68M's
+   published shape (JackFram/llama-68m: 2 x 768, 12 heads, intermediate
+   3072, vocab 32000; random weights), the target's first 2 layers with
+   its embeddings, final norm and head, and the target itself; against
+   generate_paged's greedy tokens; a round's device ms by part (catch-up,
+   draft steps, verify). B: the batcher phase's 24 requests through the
+   graphed paged batcher (8 slots, s_max 1024, block 64) without a draft,
+   with the 68M draft and with the target as its own draft. C (after
+   gateway): gpt2_serve's GPT-2 with a 6-layer draft at its width
+   (distilgpt2's depth, vocab 32000): the standalone loop on gpt2_serve's
+   6 prompts, its traffic through the graphed paged batcher with and
+   without the draft, the gateway drill (two graphed paged replicas with
+   the prefix cache and the draft, chaos serving.step killing one
+   mid-decode, every request finished on the survivor) against a lone
+   batcher, and a draft-carrying batcher with a 1 GiB host tier over
+   tiers' churn whose promoted pages of both pools come back byte for
+   byte. Per run: tokens/s (with and without the graphs' captures),
+   spec_stats, acceptance, tokens per target dispatch, launches, a
+   round's device ms by part (catch-up, draft steps, verify: CUDA events
+   on the graphs) and the idle share (the batchers' from a profiled
+   window of 2 requests, the standalone loop's from its rounds and the
+   round's device ms). Checks:
+   full lengths, no page leaks, no flash forward (the paged path's
+   attention is plain, as in the JAX package), the RMSNorm wrapper's
+   count against the eager and captured passes, RMSNorm at the verify's
+   rows and the 68M draft's width against its plain version, tokens
+   within twice the run's bf16 spread against a float32 copy.
 5. train: Llama-2-7B width at 8 of its 32 layers trains 5 steps of
    4 x 2048 tokens (AdamW, amp.decorate O2 bf16, recompute, TrainStep);
    the launch counts of one step prove the path ran every kernel, and its
@@ -4795,6 +4824,671 @@ def dropout_build(build):
     return build.rsplit(",", 1)[-1].strip(" >") in ("true", "1")
 
 
+# -- phase 4i ----------------------------------------------------------------
+
+# A: generate_paged_speculative on serving_model (Llama-2-7B): a 512-token
+# prompt, 128 new tokens, draft_k 4, block 64, compile=True, three drafts
+SPEC_PROMPT, SPEC_NEW, SPEC_K, SPEC_BLOCK = 512, 128, 4, 64
+# LLaMA-68M's published shape (JackFram/llama-68m, SpecInfer's draft for
+# LLaMA-7B): 2 layers of 768, 12 heads of 64, intermediate 3072, vocab
+# 32000; random weights from --seed like the target's
+LLAMA_68M = dict(vocab_size=32000, hidden_size=768, intermediate_size=3072,
+                 num_hidden_layers=2, num_attention_heads=12,
+                 num_key_value_heads=12, max_position_embeddings=2048,
+                 dtype="bfloat16")
+SPEC_SELF_LAYERS = 2         # the target's first layers as a draft
+# B: the batcher phase's traffic through the graphed paged batcher (block
+# 64, no prefill chunks: a draft refuses them)
+SPEC_BATCHER = dict(max_batch=8, s_max=1024, block_size=64)
+# C: gpt2_serving_model with a draft of distilgpt2's depth at its width
+SPEC_GPT2_DRAFT_LAYERS = 6
+SPEC_GPT2_BATCHER = dict(max_batch=GPT2_BATCH, s_max=GPT2_S_MAX,
+                         block_size=64)
+# C's tier drill: tier_stream's churn at vocab 32000 through 2 slots
+SPEC_TIER_CFG = dict(TIER_CFG, n_pages=22)
+SPEC_TIER_PROMPTS = 24
+
+
+def rms_launches_per_call(model):
+    """RMSNorm wrapper launches in one pass of `model`: two a layer and the
+    final norm for Llama; none for GPT-2 (LayerNorm is plain)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    if isinstance(model, LlamaForCausalLM):
+        return 2 * model.config.num_hidden_layers + 1
+    return 0
+
+
+class CaptureLog:
+    """While active, records every jit.to_static function created (the
+    speculative loop's four) and times each capture (warm-up and capture,
+    synchronized), so a run's wall can be read without them."""
+
+    def __init__(self):
+        self.made, self.capture_s = [], 0.0
+
+    def __enter__(self):
+        import paddle_tpu_torch.jit as J
+        self.J, self.orig = J, J.to_static
+
+        def recorded(fn, donate_args=()):
+            s = self.orig(fn, donate_args)
+            self.watch(s)
+            return s
+        J.to_static = recorded
+        return self
+
+    def watch(self, s):
+        cap = s._capture
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cap(*args)
+            torch.cuda.synchronize()
+            self.capture_s += time.perf_counter() - t0
+            return out
+        s._capture = timed
+        self.made.append(s)
+        return s
+
+    def __exit__(self, *exc):
+        self.J.to_static = self.orig
+
+
+def graph_launches(counts, fns):
+    """The run's launches: the wrapper's counts (eager calls, and each
+    graph's warm-up and capture) and, for each captured function in
+    `fns` = [(function, RMSNorm launches a call)], its replays after the
+    capture's own."""
+    out = dict(counts)
+    out["rms_norm"] += sum(n * (f.replays - f.captures) for f, n in fns)
+    return out
+
+
+def llama_drafts(seed, model):
+    """The three drafts of part A: LLaMA-68M's shape, the target's first
+    SPEC_SELF_LAYERS layers with its embeddings, final norm and head (the
+    same modules, no copy), and the target itself."""
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         llama2_7b_config)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 68)
+    d68 = LlamaForCausalLM(LlamaConfig(**LLAMA_68M), device="cuda",
+                           generator=gen)
+    part = LlamaForCausalLM(llama2_7b_config(
+        dtype="bfloat16", num_hidden_layers=SPEC_SELF_LAYERS),
+        device="cuda", generator=gen)
+    part.model.embed_tokens = model.model.embed_tokens
+    part.model.layers = torch.nn.ModuleList(
+        list(model.model.layers[:SPEC_SELF_LAYERS]))
+    part.model.norm = model.model.norm
+    part.lm_head = model.lm_head
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"llama_68m": d68, f"self_{SPEC_SELF_LAYERS}_layers": part,
+            "self": model}
+
+
+def rms_timed(gen, shape):
+    """The RMSNorm forward at `shape` (bf16) against its plain version
+    (rms_case), then timed beside it, F.rms_norm and its bound."""
+    from paddle_tpu_torch.ops.hopper import rms_norm, rms_norm_plain
+    (x, w), rrec = rms_case(gen, torch.bfloat16, shape)
+    n = x.numel()
+    rows = n // x.shape[-1]
+    r_bound, r_by = bound(2 * n * 2 + w.numel() * 2 + rows * 4, 4 * n,
+                          H100_FP32_FLOPS)
+    return {"shape": f"x {list(shape)} bf16", "build": rrec["build"],
+            "threads": rrec["threads"], "max_abs_err": rrec["max_abs_err"],
+            "tol": rrec["tol"], "ms": time_ms(lambda: rms_norm(x, w, 1e-5)),
+            "plain_ms": time_ms(lambda: rms_norm_plain(x, w, 1e-5)),
+            "bound_ms": r_bound, "bound_by": r_by,
+            "library_ms": time_ms(lambda: torch.nn.functional.rms_norm(
+                x, (x.shape[-1],), w, 1e-5))}
+
+
+def idle_share(fn):
+    """1 - the device ms of one profiled call of fn over the wall of an
+    unprofiled call just before it (a profiler session's cost grows with
+    the records, so callers keep fn short)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = profile_one(fn)["device_ms"]
+    if dev == "not measured":
+        return dev
+    return 1 - dev / wall_ms
+
+
+SPEC_IDLE_NEW = 16           # the batcher window profiled for idle
+
+
+def idle_from_rounds(rec):
+    """A standalone call's idle share estimated from its parts: its rounds
+    times a round's device ms (spec_round_split, CUDA events on the same
+    graphs) over its wall without the graphs' captures (profiling a whole
+    call costs minutes at 7B: the records of ~600 graph replays)."""
+    busy_ms = rec["spec_stats"]["rounds"] * rec["round_device_ms"]["round"]
+    return 1 - busy_ms / ((rec["wall_s"] - rec["capture_s"]) * 1e3)
+
+
+def spec_round_split(target, draft, ids, new, reps=10):
+    """A round's device ms by part at one sequence's shapes, each part a
+    CUDA graph timed by CUDA events (cold L2): the draft's catch-up of one
+    token, its SPEC_K - 1 decode steps, and the target's verify of SPEC_K
+    + 1 rows, all after the prompt."""
+    from paddle_tpu_torch.jit import to_static
+    L, dev = ids.shape[1], ids.device
+    bps = -(-(L + new) // SPEC_BLOCK)
+    with torch.no_grad():
+        _, ts = target.paged_prefill(ids, SPEC_BLOCK, bps)
+        _, ds = draft.paged_prefill(ids, SPEC_BLOCK, bps)
+
+    def verify(i, layers, bt, dec):
+        return target.paged_prefill_into(i, layers, bt, SPEC_BLOCK,
+                                         dec_base=dec, logits_all=True)
+
+    def catchup(i, layers, bt, dec, at):
+        return draft.paged_prefill_into(i, layers, bt, SPEC_BLOCK,
+                                        dec_base=dec, logits_at=at)
+    v, c = to_static(verify, (1,)), to_static(catchup, (1,))
+    d = to_static(draft.paged_decode_step, (1,))
+    dec = torch.tensor([L], dtype=torch.int32, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    tok = torch.zeros(1, dtype=torch.int64, device=dev)
+    parts = {
+        "catch_up": lambda: c(torch.zeros(1, 1, dtype=torch.int64,
+                                          device=dev),
+                              ds["layers"], ds["block_tables"], dec, zero),
+        "draft_steps": lambda: [d(tok, ds) for _ in range(SPEC_K - 1)],
+        "verify": lambda: v(torch.zeros(1, SPEC_K + 1, dtype=torch.int64,
+                                        device=dev),
+                            ts["layers"], ts["block_tables"], dec)}
+    with torch.no_grad():
+        out = {k: time_ms(fn, iters=reps) for k, fn in parts.items()}
+    out["round"] = sum(out.values())
+    del ts, ds, v, c, d
+    return out
+
+
+def spec_standalone(model, draft, ids, ref_seq, name):
+    """One generate_paged_speculative call (compile=True): its tokens, the
+    stats, the wall with and without the graphs' captures, and the
+    launches (the replays' included), the counters set to 0 just before."""
+    from paddle_tpu_torch.ops.hopper import launch_counts, reset_launch_counts
+    nt, nd = rms_launches_per_call(model), rms_launches_per_call(draft)
+    torch.cuda.synchronize()
+    with CaptureLog() as log, torch.no_grad():
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out, stats = model.generate_paged_speculative(
+            ids, SPEC_NEW, draft, draft_k=SPEC_K, block_size=SPEC_BLOCK,
+            compile=True, return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    # the loop makes its graphs in this order: target step, draft step,
+    # verify (the target), catch-up (the draft)
+    launches = graph_launches(counts, zip(log.made, (nt, nd, nt, nd)))
+    seq = out[0].cpu().numpy()
+
+    rec = {"draft": name, "tokens_per_s": SPEC_NEW / wall,
+           "tokens_per_s_without_captures": SPEC_NEW / (wall - log.capture_s),
+           "wall_s": wall, "capture_s": log.capture_s,
+           "captures": sum(f.captures for f in log.made),
+           "replays": sum(f.replays for f in log.made),
+           "spec_stats": stats, "launches": launches,
+           "differing_tokens": int((seq != ref_seq).sum())}
+    return seq, rec
+
+
+def spec_batcher_run(model, traffic, draft=None, config=SPEC_BATCHER):
+    """`traffic` through a new graphed PagedContinuousBatcher(**config)
+    with `draft` (or none): 12 requests up front, 12 after the 5th step.
+    The launch counters and the models' paged_prefill_into calls are set
+    to 0 just before and read just after. Returns (the sequences, the
+    report)."""
+    from paddle_tpu_torch.inference import PagedContinuousBatcher
+    from paddle_tpu_torch.ops.hopper import launch_counts, reset_launch_counts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kw = dict(draft_model=draft, draft_k=SPEC_K) if draft is not None else {}
+    b = PagedContinuousBatcher(model, compile=True, **config, **kw)
+    log = CaptureLog()
+    fns = [(b._step_fn, rms_launches_per_call(model))]
+    if draft is not None:
+        nd = rms_launches_per_call(draft)
+        fns += [(b._verify_fn, rms_launches_per_call(model)),
+                (b._dstep_fn, nd), (b._catchup_fn, nd)]
+    for f, _ in fns:
+        log.watch(f)
+    calls = count_calls(model, "paged_prefill_into")
+    dcalls = (count_calls(draft, "paged_prefill_into")
+              if draft is not None and draft is not model else calls)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        half = len(traffic) // 2
+        rids = [b.submit(p, n) for p, n in traffic[:half]]
+        early = []
+        for _ in range(5):
+            early += b.step()
+        rids += [b.submit(p, n) for p, n in traffic[half:]]
+        outs = b.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    del model.paged_prefill_into
+    if draft is not None and draft is not model:
+        del draft.paged_prefill_into
+    outs.update({r: b.pop_result(r) for r in early})
+    stats = b.stats()
+    tokens = stats["generated_tokens"]
+    window = [(p, SPEC_IDLE_NEW) for p, _ in traffic[:2]]
+
+    def run_window():
+        with torch.no_grad():
+            for p, n in window:
+                b.submit(p, n)
+            b.run_until_done()
+    passes = b.spec_stats["rounds"] + b.spec_stats["fallback_steps"] \
+        if draft is not None else stats["steps"]
+    rep = {"draft": None if draft is None else
+           getattr(draft, "_spec_name", "draft"),
+           "requests": len(traffic), "tokens": tokens, "wall_s": wall,
+           "capture_s": log.capture_s,
+           "tokens_per_s": tokens / wall,
+           "tokens_per_s_without_captures": tokens / (wall - log.capture_s),
+           "spec_stats": dict(b.spec_stats),
+           "acceptance_rate": b.spec_stats["matched"]
+           / max(b.spec_stats["proposed"], 1),
+           "tokens_per_target_dispatch": tokens / max(passes, 1),
+           "graphs": {k: [f.captures, f.replays] for k, (f, _) in zip(
+               ("step", "verify", "draft_step", "catch_up"), fns)},
+           "target_prefill_calls": calls[0],
+           "draft_prefill_calls": dcalls[0] if dcalls is not calls else 0,
+           "launches": graph_launches(counts, fns),
+           "wrapper_counts": counts,
+           "pages_leaked": b.audit_pages(),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           # a window of the first 2 prompts with SPEC_IDLE_NEW new tokens
+           # after the run, timed, then again under the profiler
+           "device_idle_share": idle_share(run_window)}
+    # the wrapper counts what ran eagerly: each paged_prefill_into call
+    # (admissions, the draft's mirrors, and the verify's and catch-up's
+    # warm-ups and captures, which call it too) and the decode steps'
+    # warm-ups and captures
+    expect = rms_launches_per_call(model) * calls[0] + 2 * sum(
+        n * f.captures for f, n in fns
+        if f in (b._step_fn, getattr(b, "_dstep_fn", None)))
+    if draft is not None and draft is not model:
+        expect += rms_launches_per_call(draft) * dcalls[0]
+    rep["rms_norm_wrapper_expected"] = expect
+    seqs = [outs[r] for r in rids]
+    del b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return seqs, rep
+
+
+def spec_check_batcher(what, rep, seqs, traffic):
+    """Fail unless every request of a spec_batcher_run completed at full
+    length with its prompt kept, no page leaked, no flash forward ran and
+    the RMSNorm wrapper counted what ran eagerly (the report's expected
+    count)."""
+    for (p, n), s in zip(traffic, seqs):
+        if len(s) != len(p) + n or not np.array_equal(s[:len(p)], p):
+            fail(f"spec {what}: {len(s)} tokens for a prompt of {len(p)} "
+                 f"and {n} new, or the prompt lost")
+    if rep["pages_leaked"]:
+        fail(f"spec {what}: {rep['pages_leaked']} pages leaked")
+    if rep["wrapper_counts"]["flash_attention"]:
+        fail(f"spec {what}: the paged path ran a flash forward")
+    if rep["wrapper_counts"]["rms_norm"] != rep["rms_norm_wrapper_expected"]:
+        fail(f"spec {what}: {rep['wrapper_counts']['rms_norm']} RMSNorm "
+             f"wrapper launches, expected "
+             f"{rep['rms_norm_wrapper_expected']}")
+
+
+def phase_spec(seed, model, spread):
+    """Parts A and B of the spec phase on `model` (serving_model:
+    Llama-2-7B, bf16, 32 layers). A: generate_paged_speculative (a
+    SPEC_PROMPT-token prompt, SPEC_NEW new tokens, draft_k SPEC_K, block
+    SPEC_BLOCK, compile=True) with LLaMA-68M's shape, the target's first 2
+    layers and the target itself as drafts, against generate_paged's greedy
+    tokens (its decode step a graph); a round's device ms by part. B: the
+    batcher phase's 24 requests through the graphed paged batcher
+    (SPEC_BATCHER) without a draft, with the 68M draft and with the target
+    as its own draft. Checks: every request completes at full length; no
+    page leaks; no flash forward (the paged path's attention is plain);
+    the RMSNorm wrapper counts 65 launches a target pass and 5 a draft pass
+    that ran eagerly or in a graph's warm-up and capture, and RMSNorm ran
+    in every run; tokens that leave the reference's lie, at each first
+    difference, within twice the paged phase's bf16 spread (`spread`) of a
+    float32 copy's top; the RMSNorm forward against its plain version at
+    the verify's rows ([1, 5, 4096], [8, 5, 4096]) and the 68M draft's
+    (768 wide: a prefill, the catch-up and a decode row), timed beside it,
+    F.rms_norm and the bound. Returns (each run's launches, the replays'
+    included; the RMSNorm records at those shapes)."""
+    from paddle_tpu_torch.jit import to_static
+    from paddle_tpu_torch.ops.hopper import launch_counts, reset_launch_counts
+    t_phase = time.perf_counter()
+    cfg = model.config
+    vocab = cfg.vocab_size
+    rng = np.random.RandomState(seed + SPEC_PROMPT)
+    prompt = rng.randint(0, vocab, SPEC_PROMPT).astype(np.int64)
+    ids = torch.from_numpy(prompt[None]).cuda()
+    drafts = llama_drafts(seed, model)
+    for n, d in drafts.items():
+        d._spec_name = n
+    counts, outs, recs = {}, {}, {}
+    # the reference: greedy generate_paged, its decode step a graph
+    with torch.no_grad():
+        step = to_static(model.paged_decode_step, donate_args=(1,))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ref = model.generate_paged(ids, SPEC_NEW, block_size=SPEC_BLOCK,
+                                   decode_fn=step)
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t0
+        counts["A generate_paged"] = graph_launches(
+            launch_counts(), [(step, rms_launches_per_call(model))])
+    ref_seq = ref[0].cpu().numpy()
+    recs["generate_paged"] = {"tokens_per_s": SPEC_NEW / ref_wall,
+                              "wall_s": ref_wall}
+    for name, d in drafts.items():
+        seq, rec = spec_standalone(model, d, ids, ref_seq, name)
+        rec["round_device_ms"] = spec_round_split(model, d, ids, SPEC_NEW)
+        rec["device_idle_share_from_rounds"] = idle_from_rounds(rec)
+        emit({"phase": "spec", "part": "A", **rec})
+        if len(seq) != SPEC_PROMPT + SPEC_NEW or \
+                not np.array_equal(seq[:SPEC_PROMPT], prompt):
+            fail(f"spec A {name}: {len(seq)} tokens")
+        if rec["launches"]["rms_norm"] < 1 or \
+                rec["launches"]["flash_attention"]:
+            fail(f"spec A {name}: launches {rec['launches']}")
+        outs[name], recs[name] = seq, rec
+        counts[f"A {name}"] = rec["launches"]
+    # B: the batcher phase's traffic
+    traffic = batcher_traffic(seed, vocab)
+    b_outs = {}
+    for name, d in (("no draft", None), ("llama_68m", drafts["llama_68m"]),
+                    ("self", model)):
+        seqs, rep = spec_batcher_run(model, traffic, d)
+        emit({"phase": "spec", "part": "B", "run": name, **rep})
+        spec_check_batcher(f"B {name}", rep, seqs, traffic)
+        if rep["launches"]["rms_norm"] < 1:
+            fail(f"spec B {name}: no RMSNorm launch")
+        b_outs[name], counts[f"B {name}"] = seqs, rep["launches"]
+        recs[f"B {name}"] = rep
+    # the tokens against the references, within twice the bf16 spread
+    t_ref = time.perf_counter()
+    ref_box, checks = [], {}
+    with torch.no_grad():
+        for name in drafts:
+            checks[f"A {name}"] = tier_divergence(
+                model, ref_box, [(SPEC_PROMPT, ref_seq, outs[name])])
+        lens = [len(p) for p, _ in traffic]
+        for name in ("llama_68m", "self"):
+            checks[f"B {name}"] = tier_divergence(model, ref_box, [
+                (n, a, b) for n, a, b in zip(lens, b_outs["no draft"],
+                                             b_outs[name])])
+    del ref_box
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the RMSNorm forward at this phase's new shapes
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rms = [rms_timed(gen, shape) for shape in (
+        (1, SPEC_K + 1, cfg.hidden_size),
+        (SPEC_BATCHER["max_batch"], SPEC_K + 1, cfg.hidden_size),
+        (1, SPEC_PROMPT, LLAMA_68M["hidden_size"]),
+        (1, 2, LLAMA_68M["hidden_size"]),
+        (SPEC_BATCHER["max_batch"], 1, LLAMA_68M["hidden_size"]))]
+    del drafts
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "spec", "part": "A and B", "check": "tokens",
+          "bf16_spread": spread, "pick_limit": 2 * spread,
+          "generate_paged": recs["generate_paged"],
+          "vs_reference": {k: {"differing_tokens": v[0],
+                               "first_differences": v[1]}
+                           for k, v in checks.items()},
+          "rms_norm_new_shapes": rms,
+          "token_check_s": time.perf_counter() - t_ref,
+          "phase_s": time.perf_counter() - t_phase})
+    over = [(k, r) for k, v in checks.items() for r in v[1]
+            if max(r["below_top"]) > 2 * spread]
+    if over:
+        fail(f"spec: speculative picks leave the reference's by more than "
+             f"twice the bf16 spread {spread}: {over}")
+    return counts, rms
+
+
+def spec_tier_probes(b, rec):
+    """Wrap the spill callback and the chunk install of a draft-carrying
+    batcher: the first TIER_PROBE_NODES demoted pages' rows in both pools
+    are copied before their demotion and compared, byte for byte, with
+    the rows of the page each is promoted into."""
+    spill, install = b._read_page_blob, b._install_chunk
+    tracked = {}
+
+    def rows_of(page):
+        return [torch.stack([t[page] for kv in state["layers"]
+                             for t in kv]).clone()
+                for state in (b._state, b._dstate)]
+
+    def probed_spill(node):
+        if len(tracked) < TIER_PROBE_NODES:
+            tracked[id(node)] = rows_of(node.page)
+        return spill(node)
+
+    def probed_install(promo, chunk, staged):
+        install(promo, chunk, staged)
+        for node, page in zip(chunk["nodes"], chunk["pages"]):
+            hit = tracked.pop(id(node), None)
+            if hit is not None:
+                rec["round_trips"].append([
+                    bool(torch.equal(a.view(torch.int16),
+                                     b_.view(torch.int16)))
+                    for a, b_ in zip(rows_of(page), hit)])
+
+    rec["round_trips"] = []
+    b.prefix_cache._spill = probed_spill
+    b._install_chunk = probed_install
+
+
+def phase_spec_gpt2(seed):
+    """Part C of the spec phase on gpt2_serving_model (bf16, 12 x 768,
+    vocab 32000) with a draft of SPEC_GPT2_DRAFT_LAYERS layers at its
+    width (random weights from --seed): generate_paged_speculative
+    (compile=True) on gpt2_serve's 6 prompts against generate_paged's
+    greedy tokens; gpt2_serve's traffic through the graphed paged batcher
+    (SPEC_GPT2_BATCHER) without the draft and with it; the gateway drill
+    (two graphed paged replicas, GW_PAGED with the prefix cache and the
+    draft, chaos serving.step killing one mid-decode) against a lone
+    batcher; a draft-carrying batcher with a host tier over tier_stream's
+    churn, its promoted pages of both pools byte for byte. Checks: full
+    lengths, no leaks, no kernel launched (GPT-2's paged attention and
+    LayerNorm are plain), the drill's victim dead, requeues and every
+    request finished, demotions and promotions, and tokens within twice
+    the bf16 spread (bf16_spread against a float32 copy). Returns the
+    launches."""
+    from paddle_tpu_torch.inference import Gateway, PagedContinuousBatcher
+    from paddle_tpu_torch.models import GPT2Config, GPT2ForCausalLM
+    from paddle_tpu_torch.ops.hopper import (KERNELS, launch_counts,
+                                             reset_launch_counts)
+    from paddle_tpu_torch.resilience import arm_scenario, disarm
+    t_phase = time.perf_counter()
+    model = gpt2_serving_model(seed)
+    model._spec_name = "gpt2"
+    draft = GPT2ForCausalLM(GPT2Config(**dict(
+        GPT2_SERVE_CFG, num_hidden_layers=SPEC_GPT2_DRAFT_LAYERS)),
+        device="cuda", generator=torch.Generator(device="cuda")
+        .manual_seed(seed + 6), seed=seed).eval()
+    draft._spec_name = f"gpt2_{SPEC_GPT2_DRAFT_LAYERS}_layers"
+    ref = GPT2ForCausalLM(GPT2Config(**dict(GPT2_SERVE_CFG,
+                                            dtype="float32")),
+                          device="cuda").eval()
+    ref.load_state_dict(model.state_dict())
+    vocab = model.config.vocab_size
+    _, prompts = gpt2_traffic(seed, vocab)
+    pairs, recs = {}, {}
+    reset_launch_counts()
+    with torch.no_grad():
+        # standalone, each prompt
+        std = []
+        for p in prompts:
+            ids = torch.from_numpy(p[None]).cuda()
+            want = model.generate_paged(ids, GPT2_NEW, block_size=64)[0]
+            with CaptureLog() as log:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, st = model.generate_paged_speculative(
+                    ids, GPT2_NEW, draft, draft_k=SPEC_K, block_size=64,
+                    compile=True, return_stats=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            std.append({"wall_s": wall, "capture_s": log.capture_s,
+                        **st})
+            pairs.setdefault("standalone", []).append(
+                (len(p), want.cpu().numpy(), out[0].cpu().numpy()))
+        tot = sum(r["wall_s"] for r in std)
+        cap = sum(r["capture_s"] for r in std)
+        recs["standalone"] = {
+            "tokens_per_s": GPT2_NEW * len(prompts) / tot,
+            "tokens_per_s_without_captures":
+                GPT2_NEW * len(prompts) / (tot - cap),
+            "acceptance_rate": sum(r["matched"] for r in std)
+            / max(sum(r["proposed"] for r in std), 1),
+            "tokens_per_target_dispatch": GPT2_NEW * len(prompts)
+            / max(sum(r["rounds"] for r in std), 1),
+            "per_prompt": std,
+            "round_device_ms": spec_round_split(
+                model, draft, torch.from_numpy(prompts[0][None]).cuda(),
+                GPT2_NEW)}
+        recs["standalone"]["device_idle_share_from_rounds"] = \
+            idle_from_rounds({
+                "spec_stats": {"rounds": sum(r["rounds"] for r in std)},
+                "round_device_ms": recs["standalone"]["round_device_ms"],
+                "wall_s": tot, "capture_s": cap})
+        # the batcher
+        traffic = [(p, GPT2_NEW) for p in prompts]
+        plain, rep0 = spec_batcher_run(model, traffic, None,
+                                       SPEC_GPT2_BATCHER)
+        spec_check_batcher("C no draft", rep0, plain, traffic)
+        spec, rep1 = spec_batcher_run(model, traffic, draft,
+                                      SPEC_GPT2_BATCHER)
+        spec_check_batcher("C draft", rep1, spec, traffic)
+        recs["batcher no draft"], recs["batcher draft"] = rep0, rep1
+        pairs["batcher"] = [(len(p), a, b) for (p, _), a, b in
+                            zip(traffic, plain, spec)]
+        # the gateway drill
+        rng = np.random.RandomState(seed + 21)
+        shared = rng.randint(0, vocab, 4 * GW_PAGED["block_size"])
+        gw_prompts = [np.concatenate([shared, rng.randint(0, vocab, 16 + i)])
+                      .astype(np.int64) for i in range(8)]
+
+        def paged(d=draft):
+            kw = dict(draft_model=d, draft_k=SPEC_K) if d is not None else {}
+            return PagedContinuousBatcher(model, compile=True,
+                                          prefix_cache=True, **GW_PAGED,
+                                          **kw)
+        gw = Gateway(policy="affinity")
+        for i in range(GW_REPLICAS):
+            gw.add_replica(f"r{i}", paged())
+        gids = [gw.submit(p, GPT2_NEW) for p in gw_prompts]
+        arm_scenario("seed=0; serving.step:transient_error:after=6,count=3")
+        try:
+            for _ in range(2000):
+                gw.step()
+                if any(not r.alive for r in gw.pool.replicas()):
+                    break
+        finally:
+            disarm()
+        survivor = next(r for r in gw.pool.replicas() if r.alive)
+        hits = survivor.batcher.prefix_cache.hit_tokens
+        for _ in range(5000):
+            if not gw._has_work():
+                break
+            gw.step()
+        gout = [gw.pop_result(g) for g in gids]
+        recs["gateway"] = {
+            "alive": {r.name: r.alive for r in gw.pool.replicas()},
+            "stats": gw.stats(),
+            "survivor_rehit_tokens": survivor.batcher.prefix_cache
+            .hit_tokens - hits,
+            "spec_stats": {r.name: dict(r.batcher.spec_stats)
+                           for r in gw.pool.replicas()},
+            "audit_pages": {r.name: r.batcher.audit_pages()
+                            for r in gw.pool.replicas() if r.alive}}
+        del gw
+        lone = paged(None)
+        lrids = [lone.submit(p, GPT2_NEW) for p in gw_prompts]
+        louts = lone.run_until_done()
+        pairs["gateway"] = [(len(p), louts[r], o) for p, r, o in
+                            zip(gw_prompts, lrids, gout)]
+        del lone
+        # the tiers with a draft
+        prefixes, tier_prompts = tier_stream(seed, vocab)
+        tier_prompts = tier_prompts[:SPEC_TIER_PROMPTS]
+        tb = PagedContinuousBatcher(model, compile=True, host_kv_gib=1.0,
+                                    draft_model=draft, draft_k=SPEC_K,
+                                    **SPEC_TIER_CFG)
+        probes = {}
+        spec_tier_probes(tb, probes)
+        try:
+            for p in prefixes:
+                tb.submit(p, TIER_NEW)
+            tb.run_until_done()
+            trids = [tb.submit(p, TIER_NEW) for p in tier_prompts]
+            touts = tb.run_until_done()
+            recs["tiers"] = {"cache": tb.prefix_cache.stats(),
+                             "spec_stats": dict(tb.spec_stats),
+                             "probes": probes,
+                             "audit_pages": tb.audit_pages(),
+                             "tiers_audit": tb.prefix_cache.audit_tiers()}
+            if any(len(touts[r]) != len(p) + TIER_NEW
+                   for r, p in zip(trids, tier_prompts)):
+                fail("spec C tiers: a request did not complete")
+        finally:
+            tb.close()
+            del tb
+        launches = launch_counts()
+        seqs = [a for _, a, _ in pairs["standalone"]]
+        spread, own, _ = bf16_spread(model, ref, seqs,
+                                     [n for n, _, _ in pairs["standalone"]])
+        diffs = {k: divergence(ref, v) for k, v in pairs.items()}
+    del model, draft, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    gwr, tr = recs["gateway"], recs["tiers"]
+    emit({"phase": "spec", "part": "C", **recs, "bf16_spread": spread,
+          "own_full_forward_gap": own,
+          "vs_reference": {k: {"differing_tokens": d[0],
+                               "first_differences": d[1]}
+                           for k, d in diffs.items()},
+          "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    if list(gwr["alive"].values()).count(False) != 1 or \
+            gwr["stats"]["requeued"] < 1 or gwr["stats"]["failures"] or \
+            any(gwr["audit_pages"].values()):
+        fail(f"spec C gateway drill: {gwr}")
+    if tr["cache"]["demotions"] < 1 or tr["cache"]["promotions"] < 1 or \
+            not tr["probes"]["round_trips"] or \
+            not all(all(t) for t in tr["probes"]["round_trips"]) or \
+            tr["audit_pages"]:
+        fail(f"spec C tiers: {tr}")
+    over = [(k, r) for k, d in diffs.items() for r in d[1]
+            if max(r["below_top"]) > 2 * spread]
+    if over:
+        fail(f"spec C: picks leave their references by more than twice "
+             f"the bf16 spread {spread}: {over}")
+    if launches != dict.fromkeys(KERNELS, 0):
+        fail(f"spec C launched {launches}")
+    return launches
+
+
 # -- phase 5 -----------------------------------------------------------------
 
 def phase_train(seed, packed=False):
@@ -5254,11 +5948,13 @@ def main(argv=None):
     fused = phase_fused(args.seed, model, spread, run_a)
     quant = phase_quant(args.seed, model, spread)
     tiers = phase_tiers(args.seed, model, spread)
+    spec, spec_rms = phase_spec(args.seed, model, spread)
     del model, dense_tokens, run_a
     torch.cuda.empty_cache()
     gpt2_serve = phase_gpt2_serve(args.seed)
     gateway = phase_gateway(args.seed)
     tiers["sessions and gateway"] = phase_tiers_sessions(args.seed)
+    spec["C gpt2"] = phase_spec_gpt2(args.seed)
     train, train_profile = phase_train(args.seed)
     packed, _ = phase_train(args.seed, packed=True)
     gpt2 = phase_gpt2_train(args.seed)
@@ -5315,6 +6011,14 @@ def main(argv=None):
         # replays' launches included), parts B and C on GPT-2
         k["launches_per_tier_run"] = {run: c[name]
                                       for run, c in tiers.items()}
+        # per spec run: part A's generate_paged and speculative calls and
+        # part B's batcher runs at Llama-2-7B (graphed: the replays'
+        # launches included), part C on GPT-2
+        k["launches_per_spec_run"] = {run: c[name]
+                                      for run, c in spec.items()}
+        if name == "rms_norm":
+            # the verify's rows and the 68M draft's width, timed
+            k["spec_shapes"] = spec_rms
         if any(gateway[name].values()):
             # per gateway window of 12 requests over two graphed dense
             # replicas, by policy, and in the failover run

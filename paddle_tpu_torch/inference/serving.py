@@ -20,9 +20,11 @@ or per-request dynamic ones (``cache_quant="dynamic_int8"``).
 
 The paged batcher's prefix cache may spill to host and disk tiers, whose
 chains come back by an asynchronous promotion stream, and it pins paused
-sessions' chains (``PagedContinuousBatcher``'s docstring).
+sessions' chains (``PagedContinuousBatcher``'s docstring). With a
+``draft_model`` it decodes speculatively: a draft proposes, the model
+verifies, and the tokens stay the model's greedy ones.
 
-Not ported yet: speculative decode; the tensor-parallel shard group.
+Not ported yet: the tensor-parallel shard group.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ from ..observability import roofline_attr
 from ..observability.fleet import autospool_tick, spool_event
 from ..observability.metrics import get_registry
 from ..observability.trace_context import end_open_spans
-from ..perf.buckets import pad_amount, resolve_ladder
+from ..perf.buckets import BucketLadder, pad_amount, resolve_ladder
 from ..perf.prefetch import AsyncLoader, consume
 from ..resilience.chaos import fault_point
 from ..resilience.recovery import (DeadlineExceeded, HealthStateMachine,
@@ -862,9 +864,23 @@ class PagedContinuousBatcher(_BatcherBase):
     ``SessionStore`` or its directory), from which ``resume_session`` on
     any replica returns the tokens to resubmit.
 
-    Not ported yet, raising ``NotImplementedError`` that names its
-    ROADMAP.md item when set: ``draft_model``, speculative decode and its
-    failover (queue 1, item 1.5).
+    Speculative decoding (greedy only): ``draft_model``, any model sharing
+    the vocabulary, keeps a pool of its own with this pool's geometry
+    under the same block table, so one table names both models' pages.
+    A round appends each slot's draft catch-up (the tokens the draft has
+    not seen, ending at the pending one: its logits are proposal 1), runs
+    ``draft_k`` - 1 draft decode steps, then one target verify pass over
+    the pending token and the k proposals, and each slot keeps its
+    longest matching prefix and the target's own next pick: the target's
+    greedy tokens exactly, 1 to k + 1 of them a target pass. A round that
+    would overrun a slot's budget or capacity, or that the pool cannot
+    back without preempting, falls back to the plain step, which keeps
+    the preemption policy. The catch-up pads onto a power-of-two ladder
+    (one graph a rung under ``compile``), the verify is a graph a width.
+    ``spec_stats`` counts rounds, proposals, matches and fallback steps;
+    the decode span carries ``spec_proposed``, ``spec_matched`` and
+    ``spec_rounds``. Demoted pages carry the draft's rows too, and a
+    promotion restores both pools.
     """
 
     _engine = "paged"
@@ -893,7 +909,7 @@ class PagedContinuousBatcher(_BatcherBase):
                  promo_chunk_blocks: Optional[int] = 4,
                  session_store=None,
                  prompt_buckets=None,
-                 draft_model=None):
+                 draft_model=None, draft_k: int = 4):
         # the JAX package's guards, in its order, before the option that
         # waits: a combination it refuses raises its ValueError here too
         if policy not in ("reserve", "ondemand"):
@@ -915,6 +931,29 @@ class PagedContinuousBatcher(_BatcherBase):
                 "(the fused chunk streams the FULL prompt at a fixed "
                 "offset grid; a cached-prefix suffix start would need a "
                 "second executable per offset)")
+        if draft_model is not None:
+            if do_sample:
+                raise ValueError("speculative decoding is greedy-only "
+                                 "(draft_model requires do_sample=False)")
+            if decode_block:
+                raise ValueError("draft_model and decode_block are both "
+                                 "decode-dispatch amortizers; pick one")
+            if fused_admission:
+                raise ValueError("draft_model is not supported with "
+                                 "fused_admission")
+            if cache_quant:
+                raise ValueError("draft_model is not supported with "
+                                 "dynamic cachekv quant")
+            if prefill_chunk:
+                raise ValueError("draft_model is not supported with "
+                                 "prefill_chunk (the draft pool would "
+                                 "need its own chunk executables)")
+            if draft_k < 1:
+                raise ValueError("draft_k must be >= 1")
+            if draft_model.config.vocab_size != model.config.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_model.config.vocab_size} != "
+                    f"target vocab {model.config.vocab_size}")
         if decode_block is not None:
             if decode_block < 2:
                 raise ValueError("decode_block must be >= 2 (1 is the "
@@ -985,10 +1024,6 @@ class PagedContinuousBatcher(_BatcherBase):
                 raise ValueError(
                     f"fused_admission needs the slot capacity ({cap}) to "
                     f"be a multiple of prefill_chunk ({prefill_chunk})")
-        if draft_model is not None:
-            raise NotImplementedError(
-                f"PagedContinuousBatcher: draft_model={draft_model!r} is "
-                "not ported yet (ROADMAP.md, queue 1, item 1.5)")
         device = next(model.parameters()).device
         if compile and device.type != "cuda":
             raise ValueError(
@@ -1235,6 +1270,39 @@ class PagedContinuousBatcher(_BatcherBase):
                 return torch.stack(toks), state
             self._block_fn = static(_block_body, 1)
 
+        # speculative decoding: the draft's pool has this pool's geometry
+        # and the same block table (copied into a state of its own), so one
+        # row of _bt names a slot's pages in both pools; _ddec is the
+        # draft's timeline per slot
+        self.draft_model = draft_model
+        self.draft_k = draft_k
+        self.spec_stats = {"rounds": 0, "proposed": 0, "matched": 0,
+                           "fallback_steps": 0}
+        if draft_model is not None:
+            self._check_window(draft_model.config, s_max)
+            self._ddec = np.zeros((max_batch,), np.int32)
+            self._dstate = paged_state(
+                draft_model.paged_alloc(n_pages + 1, block_size),
+                self._to_device(self._bt), max_batch, 0, block_size,
+                self.blocks_per_seq)
+
+            def _verify(ids, layers, bt, dec):
+                return model.paged_prefill_into(
+                    ids, layers, bt, block_size, dec_base=dec,
+                    logits_all=True)
+
+            def _catchup(ids, layers, bt, dec, at):
+                return draft_model.paged_prefill_into(
+                    ids, layers, bt, block_size, dec_base=dec,
+                    logits_at=at)
+            self._dstep_fn = static(draft_model.paged_decode_step, 1)
+            self._verify_fn = static(_verify, 1)
+            self._catchup_fn = static(_catchup, 1)
+            # the catch-up's width varies a round (1-2 in steady state,
+            # wide after fallback steps): padded up a pow2 ladder, so the
+            # catch-up graphs stay O(log s_max)
+            self._cu_ladder = BucketLadder.pow2(hi=s_max)
+
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self._device)
 
@@ -1336,21 +1404,31 @@ class PagedContinuousBatcher(_BatcherBase):
         (the key marks a quantized blob; ``_install_chunk`` dequantizes on
         promotion), about half of what a chain costs the host and disk
         budgets. An int8 pool (static calibration) never takes this path:
-        its pages spill int8 as they are and reinstall verbatim."""
+        its pages spill int8 as they are and reinstall verbatim.
+
+        With a draft model its pool shares the block table, so the page's
+        draft rows spill beside the target's, under ``d`` (and ``ds``):
+        a promotion must restore both pools for the page to be of use."""
         t0 = _time.perf_counter()
         page = int(node.page)
-        layers = self._state["layers"]
-        rows = torch.stack([t[page] for kv in layers for t in kv])
-        rows = rows.view(len(layers), 2, *rows.shape[1:])
-        raw = blob_nbytes(rows)
-        if self.tier_quant:
-            codes, scales = self._quant_page(rows)
-            blob = {"t": self._host_copy(codes),
-                    "ts": self._host_copy(scales)}
-        else:
-            blob = {"t": self._host_copy(rows)}
-        if rows.is_cuda:
-            torch.cuda.current_stream(rows.device).synchronize()
+
+        def page_rows(layers):
+            rows = torch.stack([t[page] for kv in layers for t in kv])
+            return rows.view(len(layers), 2, *rows.shape[1:])
+        parts = [("t", page_rows(self._state["layers"]))]
+        if self.draft_model is not None:
+            parts.append(("d", page_rows(self._dstate["layers"])))
+        raw = sum(blob_nbytes(rows) for _, rows in parts)
+        blob = {}
+        for key, rows in parts:
+            if self.tier_quant:
+                codes, scales = self._quant_page(rows)
+                blob[key] = self._host_copy(codes)
+                blob[key[0] + "s"] = self._host_copy(scales)
+            else:
+                blob[key] = self._host_copy(rows)
+        if parts[0][1].is_cuda:
+            torch.cuda.current_stream(parts[0][1].device).synchronize()
         self._spill_raw_c.inc(raw)
         self._spill_blob_c.inc(blob_nbytes(blob))
         self._demote_h.observe(_time.perf_counter() - t0)
@@ -1467,23 +1545,29 @@ class PagedContinuousBatcher(_BatcherBase):
         are, read the promoted pages at their next replay. On the card the
         main stream first waits on the chunk's copy event."""
         consume(chunk["future"], staged)
-        rows = []
-        for blob in staged:
-            if blob.get("ts") is not None:
-                # a tier_quant blob: codes and scales back to float before
-                # the pool write, timed (the promotion-side cost tier_quant
-                # pays)
-                tq0 = _time.perf_counter()
-                rows.append(self._dequant_rows(blob["t"], blob["ts"]))
-                self._dequant_h.observe(_time.perf_counter() - tq0)
-            else:
-                rows.append(blob["t"])
-        rows = torch.stack(rows)               # [n, L, 2, KV, block, D]
         idx = torch.tensor(chunk["pages"], dtype=torch.long,
                            device=self._device)
-        for li, (kc, vc) in enumerate(self._state["layers"]):
-            kc.index_copy_(0, idx, rows[:, li, 0].to(kc.dtype))
-            vc.index_copy_(0, idx, rows[:, li, 1].to(vc.dtype))
+        pools = [("t", self._state["layers"])]
+        if self.draft_model is not None:
+            # the draft's rows of the same pages (the demotion wrote both)
+            pools.append(("d", self._dstate["layers"]))
+        for key, layers in pools:
+            rows = []
+            for blob in staged:
+                if blob.get(key + "s") is not None:
+                    # a tier_quant blob: codes and scales back to float
+                    # before the pool write, timed (the promotion-side cost
+                    # tier_quant pays)
+                    tq0 = _time.perf_counter()
+                    rows.append(self._dequant_rows(blob[key],
+                                                   blob[key + "s"]))
+                    self._dequant_h.observe(_time.perf_counter() - tq0)
+                else:
+                    rows.append(blob[key])
+            rows = torch.stack(rows)           # [n, L, 2, KV, block, D]
+            for li, (kc, vc) in enumerate(layers):
+                kc.index_copy_(0, idx, rows[:, li, 0].to(kc.dtype))
+                vc.index_copy_(0, idx, rows[:, li, 1].to(vc.dtype))
         for node, page, nb in zip(chunk["nodes"], chunk["pages"],
                                   chunk["nbytes"]):
             self.prefix_cache.promote_node(node, page, nb)
@@ -1555,6 +1639,8 @@ class PagedContinuousBatcher(_BatcherBase):
                 keep = {n.page for n in nodes}
         self._release_row(self._bt[slot], keep)
         self._dec[slot] = 0
+        if self.draft_model is not None:
+            self._ddec[slot] = 0
         if self.cache_quant:
             self._scales_host[:, :, slot] = 1.0
             self._scales_dirty = True
@@ -1843,6 +1929,20 @@ class PagedContinuousBatcher(_BatcherBase):
                     logits, _ = self.model.paged_prefill_into(
                         self._to_device(ids_np[None, :]),
                         self._state["layers"], bt_row, self.block_size)
+                if self.draft_model is not None:
+                    # the suffix into the draft's pool too (the same
+                    # block-table row, its own pages): cached pages already
+                    # hold the prefix's draft rows, since every page enters
+                    # the tree through an admission that wrote both pools
+                    dfx = np.zeros((1, max(S, 1)), np.int64)
+                    dfx[0, :S] = ids_np[m_rows:]
+                    self.draft_model.paged_prefill_into(
+                        self._to_device(dfx), self._dstate["layers"],
+                        bt_row, self.block_size,
+                        dec_base=self._to_device(
+                            np.array([m_rows], np.int32)),
+                        logits_at=self._to_device(np.array([0], np.int32)))
+                    self._ddec[slot] = L
             if self.prefix_cache is not None:
                 self._prefix_hit_c.inc(m_rows)
                 self._prefix_miss_c.inc(S)
@@ -2093,6 +2193,9 @@ class PagedContinuousBatcher(_BatcherBase):
         one."""
         if not self._slot_req:
             return
+        if self.draft_model is not None \
+                and self._speculative_tail(finished):
+            return
         if self.decode_block and not self._pending \
                 and self._admitting is None \
                 and self._block_backed(self.decode_block):
@@ -2122,7 +2225,6 @@ class PagedContinuousBatcher(_BatcherBase):
         pages it will not use."""
         cap = self.blocks_per_seq * self.block_size
         plan = []                      # (slot, upto) to allocate on a pass
-        need = 0
         for slot in list(self._admit_order):
             req = self._slot_req.get(slot)
             if req is None:
@@ -2130,20 +2232,27 @@ class PagedContinuousBatcher(_BatcherBase):
             if int(self._dec[slot]) + K > cap:
                 return False
             keep = min(K, req.max_new_tokens - len(req.tokens))
-            if keep <= 0:
-                continue
-            upto = int(self._dec[slot]) + keep
-            have = int(np.sum(self._bt[slot] != self._scratch))
-            need += max(0, self._pages_for(upto) - have)
-            plan.append((slot, upto))
+            if keep > 0:
+                plan.append((slot, int(self._dec[slot]) + keep))
+        return self._back_all(plan)
+
+    def _back_all(self, plan) -> bool:
+        """Back rows [0, upto) of every (slot, upto) of ``plan`` with pages,
+        or none of them: on demand, the pool is probed for all the slots
+        before any page moves, and a dry pool declines (no preemption),
+        so a declined block or round leaves no slot holding pages it will
+        not use. Reserve backed everything at admission."""
         if self.policy != "ondemand":
-            return True                # reserve backed everything up front
+            return True
+        need = sum(max(0, self._pages_for(upto)
+                       - int(np.sum(self._bt[slot] != self._scratch)))
+                   for slot, upto in plan)
         if need > self._available_pages():
             return False
         for slot, upto in plan:
             if not self._alloc_pages(slot, upto):   # pragma: no cover
-                raise RuntimeError("page accounting bug: block probe "
-                                   "passed but allocation failed")
+                raise RuntimeError("page accounting bug: the probe passed "
+                                   "but allocation failed")
         return True
 
     def _decode_block_tail(self, finished: List[int]):
@@ -2179,6 +2288,128 @@ class PagedContinuousBatcher(_BatcherBase):
                 self._last_tok[slot] = tok
                 if self._maybe_finish(req, tok):
                     finished.append(req.rid)
+
+    # -- speculative decoding -----------------------------------------------
+    def _sync_draft_tables(self):
+        """Copy the host's block table and the draft's timelines into the
+        draft state's own device tensors (the draft graphs' leaves)."""
+        self._dstate["block_tables"].copy_(torch.from_numpy(self._bt))
+        self._dstate["dec_lens"].copy_(torch.from_numpy(self._ddec))
+
+    @staticmethod
+    def _argmax_b(logits) -> np.ndarray:
+        return torch.argmax(logits, dim=-1).cpu().numpy()
+
+    def _speculative_tail(self, finished: List[int]) -> bool:
+        """One draft and verify round for every active slot; False (nothing
+        ran) when the round must fall back to the plain step, which keeps
+        the preemption policy.
+
+        Per slot, the target's pool holds rows for prompt + tokens[:-1]
+        (``_dec``; tokens[-1] is pending) and the draft's holds correct
+        rows for the first ``_ddec`` positions. The round appends the
+        draft's catch-up (``seq[_ddec:]``, ending at the pending token, so
+        its logits are proposal 1), runs k - 1 draft steps, then scores the
+        pending token and the k proposals in one target pass; each slot
+        takes its longest matching prefix and the target's next pick, so
+        the tokens are the target's greedy ones."""
+        reqs = list(self._slot_req.items())
+        k = min(self.draft_k,
+                min(r.max_new_tokens - len(r.tokens) for _, r in reqs) - 1)
+        if k < 1:
+            # some slot has budget for one token only: a k-wide round would
+            # overshoot it, so one plain step instead
+            self.spec_stats["fallback_steps"] += 1
+            return False
+        cap = self.blocks_per_seq * self.block_size
+        cus = {slot: int(self._dec[slot]) - int(self._ddec[slot]) + 1
+               for slot, _ in reqs}
+        W = self._cu_ladder.bucket(max(cus.values()))
+        for slot, _ in reqs:
+            # both pools write rows through dec + k, the catch-up's pad rows
+            # through ddec + W - 1: past the capacity they would land on
+            # the slot's last real page (the clamped block index)
+            if int(self._dec[slot]) + k + 1 > cap \
+                    or int(self._ddec[slot]) + W > cap:
+                self.spec_stats["fallback_steps"] += 1
+                return False
+        if not self._back_all([(slot, int(self._dec[slot]) + k + 1)
+                               for slot, _ in reqs]):
+            self.spec_stats["fallback_steps"] += 1
+            return False
+        self._step_prologue()
+        t0 = _time.perf_counter()
+        B = self.max_batch
+        cu_ids = np.zeros((B, W), np.int64)
+        cu_at = np.zeros((B,), np.int32)
+        dbase = np.zeros((B,), np.int32)
+        for slot, req in reqs:
+            seq = np.concatenate(
+                [req.prompt, np.asarray(req.tokens, np.int64)])
+            lo = int(self._ddec[slot])
+            cu = seq[lo:]                      # ends at the pending token
+            cu_ids[slot, :len(cu)] = cu
+            cu_at[slot] = len(cu) - 1
+            dbase[slot] = lo
+        with torch.no_grad():
+            self._sync_draft_tables()
+            dl, _ = self._catchup_fn(
+                self._to_device(cu_ids), self._dstate["layers"],
+                self._dstate["block_tables"], self._to_device(dbase),
+                self._to_device(cu_at))
+            props = [self._argmax_b(dl)]       # [B] proposal 1
+            for slot, _ in reqs:
+                self._ddec[slot] = int(self._dec[slot]) + 1
+            self._dstate["dec_lens"].copy_(torch.from_numpy(self._ddec))
+            tok = props[0]
+            for _ in range(k - 1):
+                dlg, new = self._dstep_fn(self._to_device(tok),
+                                          self._dstate)
+                self._dstate["dec_lens"].copy_(new["dec_lens"])
+                tok = self._argmax_b(dlg)
+                props.append(tok)
+            ids_v = np.zeros((B, k + 1), np.int64)
+            for slot, _ in reqs:
+                ids_v[slot, 0] = self._last_tok[slot]
+                for i in range(k):
+                    ids_v[slot, 1 + i] = props[i][slot]
+            vlogits, _ = self._verify_fn(
+                self._to_device(ids_v), self._state["layers"],
+                self._state["block_tables"],
+                self._to_device(self._dec.copy()))
+            g = self._argmax_b(vlogits)        # [B, k + 1]
+        total = 0
+        for slot, req in reqs:
+            pv = [int(props[i][slot]) for i in range(k)]
+            j = 0
+            while j < k and pv[j] == int(g[slot, j]):
+                j += 1
+            acc = pv[:j] + [int(g[slot, j])]
+            self.spec_stats["proposed"] += k
+            self.spec_stats["matched"] += j
+            sp = req.spans.get("decode")
+            if sp is not None:
+                # per-request acceptance on the open decode span (before
+                # _maybe_finish can close it)
+                tg = sp.tags
+                tg["spec_proposed"] = int(tg.get("spec_proposed") or 0) + k
+                tg["spec_matched"] = int(tg.get("spec_matched") or 0) + j
+                tg["spec_rounds"] = int(tg.get("spec_rounds") or 0) + 1
+            old_dec = int(self._dec[slot])
+            self._dec[slot] = old_dec + len(acc)
+            self._ddec[slot] = min(old_dec + k, old_dec + len(acc))
+            for t in acc:
+                if req.finished:
+                    break              # EOS mid-round: the rest is dropped
+                req.tokens.append(int(t))
+                self._tele.on_token(req)
+                self._last_tok[slot] = int(t)
+                total += 1
+                if self._maybe_finish(req, int(t)):
+                    finished.append(req.rid)
+        self.spec_stats["rounds"] += 1
+        self._tele.on_decode_time(_time.perf_counter() - t0, tokens=total)
+        return True
 
     # -- fused admission ----------------------------------------------------
     def _start_admission(self) -> bool:

@@ -1,13 +1,15 @@
 """The shared incremental-decode drivers and the host token pick
 (counterparts of ``paddle_tpu/models/gpt.py`` ``_generate_loop``,
 ``_beam_loop``, ``_resolve_s_max``, ``_select_token`` and the paged-state
-helpers ``_paged_state``, ``_paged_prefill_impl`` and
-``_paged_generate_loop``), which GPT-2 and Llama both drive.
+helpers ``_paged_state``, ``_paged_prefill_impl``,
+``_paged_generate_loop`` and ``_speculative_loop``), which GPT-2 and Llama
+both drive.
 
 ``generate_loop`` picks greedily on the device or samples on the host
 (``select_token``, also what the serving batchers pick with);
 ``beam_loop`` is beam search over the dense cache; ``paged_generate_loop``
-is greedy over a paged cache.
+is greedy over a paged cache; ``speculative_loop`` is greedy draft and
+verify over two paged caches.
 """
 from __future__ import annotations
 
@@ -277,3 +279,161 @@ def paged_generate_loop(model, input_ids, max_new_tokens, block_size,
         state["dec_lens"].copy_(new_state["dec_lens"])
         tok = torch.argmax(logits, dim=-1)
     return torch.cat([x.long() for x in toks], dim=1)
+
+
+def speculative_loop(target, draft, input_ids, max_new_tokens, draft_k,
+                     block_size, eos_id, compile, return_stats):
+    """Greedy speculative decoding over the paged cache, one sequence.
+
+    The draft proposes ``draft_k`` tokens a round, one at a time; the
+    target scores the pending token and all proposals in one pass
+    (``paged_prefill_into(logits_all=True)``), accepts the longest prefix
+    that matches its own greedy picks and adds its own next pick. So a
+    target pass gives 1 to draft_k + 1 tokens and the output is the
+    target's greedy sequence exactly. A rejection costs nothing to undo:
+    the host owns each timeline's length, attention reads no row past it,
+    and the next append overwrites the stale rows. Any draft that shares
+    the target's vocabulary works, across families.
+
+    With ``compile=True`` the target step, the draft step, the verify and
+    the draft's catch-up are CUDA graphs (``jit.to_static``, the pools
+    donated): one capture a width (the verify's k + 1, the catch-up's 1
+    or 2). Returns int64 ids ``[1, L + n]`` on the ids' device and, with
+    ``return_stats``, a dict of ``rounds``, ``proposed``, ``matched``,
+    ``acceptance_rate`` and ``tokens_per_target_dispatch``.
+    """
+    if input_ids.shape[0] != 1:
+        raise ValueError("speculative decoding is single-sequence "
+                         "(batch it at the serving layer)")
+    if draft_k < 1:
+        raise ValueError("draft_k must be >= 1")
+    if draft.config.vocab_size != target.config.vocab_size:
+        raise ValueError(
+            f"draft vocab {draft.config.vocab_size} != target vocab "
+            f"{target.config.vocab_size}")
+    _, L = input_ids.shape
+    dev = input_ids.device
+    if max_new_tokens <= 0:
+        # generate(ids, 0) returns the prompt unchanged: match it
+        out = input_ids.long().clone()
+        if not return_stats:
+            return out
+        return out, {"rounds": 0, "proposed": 0, "matched": 0,
+                     "acceptance_rate": 0.0,
+                     "tokens_per_target_dispatch": 0.0}
+    needed = L + max_new_tokens
+    for m, who in ((target, "target"), (draft, "draft")):
+        if needed > m.config.max_position_embeddings:
+            raise ValueError(
+                f"prompt {L} + {max_new_tokens} exceeds the {who}'s "
+                f"max_position_embeddings="
+                f"{m.config.max_position_embeddings}")
+    if compile and dev.type != "cuda":
+        raise ValueError(
+            "generate_paged_speculative(compile=True) captures its steps as "
+            f"CUDA graphs, which needs the models on the card (the ids are "
+            f"on {dev}); pass compile=False to run them eagerly")
+    bps = -(-needed // block_size)
+
+    def ids(values):
+        return torch.tensor([values], dtype=torch.int64, device=dev)
+
+    def token(value):
+        return torch.tensor([value], dtype=torch.int64, device=dev)
+
+    def ints(values):
+        return torch.tensor(values, dtype=torch.int32, device=dev)
+
+    def verify_body(ids_, layers, bt, dec):
+        return target.paged_prefill_into(ids_, layers, bt, block_size,
+                                         dec_base=dec, logits_all=True)
+
+    def catchup_body(ids_, layers, bt, dec, at):
+        # the draft's append of 1 token after a rejection, 2 after a round
+        # it matched in full (see d_rows below); the last position's logits
+        # are the first proposal
+        return draft.paged_prefill_into(ids_, layers, bt, block_size,
+                                        dec_base=dec, logits_at=at)
+
+    t_step, d_step = target.paged_decode_step, draft.paged_decode_step
+    verify, catchup = verify_body, catchup_body
+    if compile:
+        from ..jit import to_static
+        t_step = to_static(t_step, donate_args=(1,))
+        d_step = to_static(d_step, donate_args=(1,))
+        verify = to_static(verify, donate_args=(1,))
+        catchup = to_static(catchup, donate_args=(1,))
+
+    def pick(logits):
+        return int(torch.argmax(logits[0]))
+
+    with torch.no_grad():
+        t_logits, t_state = target.paged_prefill(input_ids, block_size, bps)
+        _, d_state = draft.paged_prefill(input_ids, block_size, bps)
+        # the target's pool holds rows for prompt + accepted[:-1]
+        # (accepted[-1] is pending, the next input); the draft's holds
+        # correct rows for the first d_rows positions of prompt + accepted.
+        # After a round it matched in full it is one row short (the last
+        # proposal was never fed back), so each round starts by appending
+        # accepted[d_rows - L:] to the draft: 1 token after a rejection, 2
+        # after a full match, whose last logits are proposal 1
+        accepted = [pick(t_logits)]
+        d_rows = L
+        rounds = proposed = matched = 0
+        while True:
+            if eos_id is not None and eos_id in accepted:
+                accepted = accepted[:accepted.index(eos_id) + 1]
+                break
+            remaining = max_new_tokens - len(accepted)
+            if remaining <= 0:
+                break
+            valid = L + len(accepted) - 1
+            k = min(draft_k, remaining - 1)
+            if k == 0:
+                # budget for exactly one more: a plain target step
+                t_state["dec_lens"].fill_(valid)
+                lg, _ = t_step(token(accepted[-1]), t_state)
+                accepted.append(pick(lg))
+                continue
+            cu = accepted[d_rows - L:]
+            dl, _ = catchup(ids(cu), d_state["layers"],
+                            d_state["block_tables"], ints([d_rows]),
+                            ints([len(cu) - 1]))
+            d_rows += len(cu)
+            tok = pick(dl)
+            props = [tok]
+            # k - 1 draft steps propose the rest
+            for i in range(k - 1):
+                d_state["dec_lens"].fill_(d_rows + i)
+                dl, _ = d_step(token(tok), d_state)
+                tok = pick(dl)
+                props.append(tok)
+            d_rows += k - 1                  # rows of props[:k-1]
+            vlogits, _ = verify(ids([accepted[-1]] + props),
+                                t_state["layers"], t_state["block_tables"],
+                                ints([valid]))
+            g = torch.argmax(vlogits[0], dim=-1).tolist()      # [k + 1]
+            j = 0
+            while j < k and props[j] == g[j]:
+                j += 1
+            accepted += props[:j] + [g[j]]
+            rounds += 1
+            proposed += k
+            matched += j
+            # the draft's rows hold at most prompt + accepted[:-1] (a
+            # rejected proposal's row is stale); a full match leaves it one
+            # short of even that
+            d_rows = min(d_rows, L + len(accepted) - 1)
+    if eos_id is not None and eos_id in accepted:
+        accepted = accepted[:accepted.index(eos_id) + 1]
+    out = torch.cat([input_ids.reshape(-1).long(),
+                     torch.tensor(accepted, dtype=torch.int64,
+                                  device=dev)])[None]
+    if not return_stats:
+        return out
+    return out, {
+        "rounds": rounds, "proposed": proposed, "matched": matched,
+        "acceptance_rate": matched / max(proposed, 1),
+        "tokens_per_target_dispatch":
+            len(accepted) / max(rounds, 1) if rounds else 1.0,
+    }

@@ -31,8 +31,9 @@ the model's generators. Positions past the ``wpe`` table are clamped to
 its last row where the JAX package's gather clamps them (chunk pad rows,
 decode past the table). Int8 KV pages, static (``calibrate_cachekv_int8``)
 and dynamic (``paged_prefill_into(dynamic_cache_scales=True)``,
-``state["cache_scales"]``), work as Llama's do. Not ported yet:
-speculative decode (``logits_all``).
+``state["cache_scales"]``), work as Llama's do. Speculative decode
+(``generate_paged_speculative``, ``paged_prefill_into(logits_all=True)``)
+runs the loop both families share (``generation.speculative_loop``).
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ from ..incubate.nn.functional.decode_attention import (
 from ..nn import functional as F
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
 from . import generation
-from .generation import paged_generate_loop, paged_prefill_impl
+from .generation import (paged_generate_loop, paged_prefill_impl,
+                         speculative_loop)
 
 
 @dataclass
@@ -394,16 +396,12 @@ class GPT2ForCausalLM(nn.Module):
         (``dynamic_scale_valid`` masks a pad tail out of them);
         ``cache_scales`` quantizes with a first chunk's.
 
-        Not ported: speculative verify (``logits_all``), which raises
-        ``NotImplementedError``."""
+        ``logits_all=True`` is speculative decode's verify pass: the
+        logits of every appended position, ``[B, s, V]`` (s = draft_k + 1,
+        so the LM head over all s rows is the point)."""
         if dynamic_cache_scales and cache_scales is not None:
             raise ValueError("dynamic_cache_scales computes scales; "
                              "cache_scales consumes them — pass one")
-        if logits_all:
-            raise NotImplementedError(
-                "paged_prefill_into(logits_all=True) is speculative "
-                "decode's verify pass, not ported yet (ROADMAP, queue 1, "
-                "item 1.5)")
         b, s = input_ids.shape
         dev = input_ids.device
 
@@ -438,7 +436,9 @@ class GPT2ForCausalLM(nn.Module):
                                    "vdq": vdq})
             layers_state.append((kc, vc))
         hidden = tr.ln_f(hidden).view(b, s, -1)
-        if logits_at is not None:
+        if logits_all:
+            rows = hidden
+        elif logits_at is not None:
             # only the requested position through the LM head (the JAX
             # package selects it with a one-hot product, which is exact)
             rows = hidden[torch.arange(b, device=dev),
@@ -561,6 +561,20 @@ class GPT2ForCausalLM(nn.Module):
         ``paged_decode_step`` (a captured one, for instance)."""
         return paged_generate_loop(self, input_ids, max_new_tokens,
                                    block_size, blocks_per_seq, decode_fn)
+
+    def generate_paged_speculative(self, input_ids, max_new_tokens,
+                                   draft_model, draft_k=4, block_size=64,
+                                   eos_id=None, compile=True,
+                                   return_stats=False):
+        """Greedy speculative decoding: ``draft_model`` (any model sharing
+        the vocabulary) proposes ``draft_k`` tokens a round and this model
+        verifies them in one pass, so the tokens equal ``generate_paged``'s
+        while a target pass yields 1 to draft_k + 1 of them. One sequence;
+        ``compile=True`` needs the models on the card (CUDA graphs). See
+        ``generation.speculative_loop``."""
+        return speculative_loop(self, draft_model, input_ids,
+                                max_new_tokens, draft_k, block_size, eos_id,
+                                compile, return_stats)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

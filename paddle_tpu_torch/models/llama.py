@@ -26,7 +26,8 @@ scales (then ``paged_alloc`` allocates int8 pools and every paged method
 quantizes with them), and ``paged_prefill_into(dynamic_cache_scales=True)``
 computes a prompt's own scales, which ``cache_scales=`` and
 ``state["cache_scales"]`` thread into later chunks and decode steps.
-Not ported yet: MoE, context parallelism and speculative decode.
+``generate_paged_speculative`` is greedy draft and verify decoding (a
+Llama or GPT-2 draft). Not ported yet: MoE and context parallelism.
 ``scan_layers`` is accepted and
 runs the unrolled stack (in the JAX package it is a compile-time device
 with the unrolled loop's numerics); selective recompute recomputes whole
@@ -49,7 +50,8 @@ from ..incubate.nn.functional.decode_attention import (
 from ..nn import functional as F
 from ..nn.layers import Embedding, Linear, RMSNorm
 from . import generation
-from .generation import paged_generate_loop, paged_prefill_impl
+from .generation import (paged_generate_loop, paged_prefill_impl,
+                         speculative_loop)
 
 @dataclass
 class LlamaConfig:
@@ -467,16 +469,11 @@ class LlamaForCausalLM(nn.Module):
         dicts of ``[B, KV]`` tensors; ``cache_scales`` (such a list)
         quantizes a later chunk with a first chunk's scales.
 
-        Not ported: speculative verify (``logits_all``), which raises
-        ``NotImplementedError``."""
+        ``logits_all=True`` is speculative decode's verify pass: the
+        logits of every appended position, ``[B, s, V]``."""
         if dynamic_cache_scales and cache_scales is not None:
             raise ValueError("dynamic_cache_scales computes scales; "
                              "cache_scales consumes them — pass one")
-        if logits_all:
-            raise NotImplementedError(
-                "paged_prefill_into(logits_all=True) is speculative "
-                "decode's verify pass, not ported yet (ROADMAP, queue 1, "
-                "item 1.5)")
         self._check_paged_servable()
         cfg = self.config
         b, s = input_ids.shape
@@ -523,7 +520,9 @@ class LlamaForCausalLM(nn.Module):
                 layer.post_attention_layernorm(hidden))
             layers_state.append((kc, vc))
         hidden = model.norm(hidden)
-        if logits_at is not None:
+        if logits_all:
+            rows = hidden
+        elif logits_at is not None:
             # only the requested position through the LM head (the JAX
             # package selects it with a one-hot product, which is exact)
             rows = hidden[torch.arange(b, device=dev),
@@ -666,6 +665,18 @@ class LlamaForCausalLM(nn.Module):
         ``paged_decode_step`` (a captured one, for instance)."""
         return paged_generate_loop(self, input_ids, max_new_tokens,
                                    block_size, blocks_per_seq, decode_fn)
+
+    def generate_paged_speculative(self, input_ids, max_new_tokens,
+                                   draft_model, draft_k=4, block_size=64,
+                                   eos_id=None, compile=True,
+                                   return_stats=False):
+        """Greedy speculative decoding (the loop GPT-2 shares): any draft
+        sharing this model's vocabulary, a GPT-2 one too, proposes and this
+        model verifies; the tokens equal ``generate_paged``'s. See
+        ``generation.speculative_loop``."""
+        return speculative_loop(self, draft_model, input_ids,
+                                max_new_tokens, draft_k, block_size, eos_id,
+                                compile, return_stats)
 
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",

@@ -39,6 +39,7 @@ from paddle_tpu_torch.observability import metrics as port_metrics
 from paddle_tpu_torch.observability.trace_context import (get_recorder,
                                                           new_trace)
 from paddle_tpu_torch.resilience import chaos as port_chaos
+from test_torch_refcache import jax_refs, normalize, register  # noqa: F401
 
 ATOL = 1e-5
 MARGIN = 1e-3
@@ -54,8 +55,7 @@ def _prompts(seed, lengths):
     return [rng.randint(0, 128, (s,)) for s in lengths]
 
 
-@pytest.fixture(scope="module")
-def models():
+def _build_models():
     """(jax_model, port_model) with the same weights; norm weights are drawn
     too, so the norms' scaling is exercised."""
     paddle.seed(0)
@@ -72,6 +72,13 @@ def models():
     pm = LlamaForCausalLM(llama_tiny_config(**CFG), device="cpu")
     pm.load_state_dict(llama_state_from_paddle_tpu(state))
     return jm, pm
+
+
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _build_models()
 
 
 class _Side:
@@ -325,17 +332,23 @@ class _Results(dict):
         return result
 
 
+REFS = register("continuous_batching.scenarios", CFG,
+                [f.__name__ for f in SCENARIOS],
+                lambda: _Results(_jax_side(_build_models()[0])),
+                lambda results, name: results[name])
+
+
 @pytest.fixture(scope="module")
-def jax_results(models):
-    """The JAX batcher's results, each scenario computed once per test
-    process (a worker runs only the scenarios it was given)."""
-    return _Results(_jax_side(models[0]))
+def jax_results(jax_refs):
+    """The JAX batcher's results, every scenario computed once a run
+    (test_torch_refcache.py)."""
+    return jax_refs(REFS)
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)
 def test_scenario_matches_the_jax_batcher(models, jax_results, scenario):
     got = scenario(_port_side(models[1]))
-    assert got == jax_results[scenario.__name__]
+    assert normalize(got) == jax_results[scenario.__name__]
 
 
 def test_bucket_pad_waste_counts_pad_tokens(jax_results):

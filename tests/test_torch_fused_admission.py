@@ -41,6 +41,7 @@ from paddle_tpu_torch.models import (LlamaForCausalLM,
                                      llama_state_from_paddle_tpu,
                                      llama_tiny_config)
 from paddle_tpu_torch.models.generation import paged_state
+from test_torch_refcache import jax_refs, normalize, register  # noqa: F401
 
 MARGIN = 1e-3
 # tests/test_continuous_batching.py's Llama config
@@ -56,8 +57,7 @@ def _prompts(seed, lengths, vocab=128):
     return [rng.randint(0, vocab, (s,)) for s in lengths]
 
 
-@pytest.fixture(scope="module")
-def models():
+def _build_models():
     """(jax_model, port_model) with the same weights; the norm weights are
     drawn too, so the norms' scaling is exercised."""
     paddle.seed(0)
@@ -74,6 +74,13 @@ def models():
     pm = LlamaForCausalLM(llama_tiny_config(**CFG), device="cpu")
     pm.load_state_dict(llama_state_from_paddle_tpu(state))
     return jm, pm
+
+
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _build_models()
 
 
 def _margin_guard(b):
@@ -246,15 +253,22 @@ class _Results(dict):
         return result
 
 
+REFS = register("fused_admission.scenarios", CFG,
+                [f.__name__ for f in SCENARIOS],
+                lambda: _Results(_jax_make(_build_models())),
+                lambda results, name: results[name])
+
+
 @pytest.fixture(scope="module")
-def jax_results(models):
-    return _Results(_jax_make(models))
+def jax_results(jax_refs):
+    """Every scenario computed once a run (test_torch_refcache.py)."""
+    return jax_refs(REFS)
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)
 def test_scenario_matches_the_jax_batcher(models, jax_results, scenario):
     got = scenario(_port_make(models))
-    assert got == jax_results[scenario.__name__]
+    assert normalize(got) == jax_results[scenario.__name__]
 
 
 @pytest.mark.parametrize("run, extra", [

@@ -75,6 +75,7 @@ from paddle_tpu_torch.resilience import recovery as p_recovery
 from paddle_tpu_torch.resilience import remediator as p_remediator
 from paddle_tpu_torch.resilience import retry as p_retry
 from paddle_tpu_torch.utils import locks as p_locks
+from test_torch_refcache import jax_refs, normalize, register  # noqa: F401
 
 MARGIN = 1e-3
 TINY = dict(vocab_size=128, hidden_size=64, num_hidden_layers=2,
@@ -885,10 +886,13 @@ def test_unported_parts_raise_by_name(monkeypatch):
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         gw.add_replica("tp0", Sharded(PORT, FakeClock()))
     assert len(gw.pool) == 0
-    with pytest.raises(NotImplementedError, match="queue 1, item 1.5"):
-        p_serving.PagedContinuousBatcher(
-            GPT2ForCausalLM(GPT2Config(**TINY), device="cpu"),
-            compile=False, draft_model=object())
+    # speculative replicas (item 1.5) are ported: a draft that is not a
+    # model fails on its config in both packages alike
+    target = GPT2ForCausalLM(GPT2Config(**TINY), device="cpu")
+    assert (_error(lambda: p_serving.PagedContinuousBatcher(
+        target, compile=False, draft_model=object()))
+        == _error(lambda: j_serving.PagedContinuousBatcher(
+            target, compile=False, draft_model=object())))
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         p_remediator.AutoRemediator(gw)
     monkeypatch.setenv("PADDLE_LOCK_WITNESS", "1")
@@ -916,8 +920,7 @@ def _gpt2_state(jm):
     return out
 
 
-@pytest.fixture(scope="module")
-def models():
+def _build_models():
     """(jax_model, port_model): the tiny GPT-2 with the same weights."""
     paddle.seed(0)
     jm = JaxGPT2(JaxGPT2Config(**TINY))
@@ -927,6 +930,13 @@ def models():
     pm = GPT2ForCausalLM(GPT2Config(**TINY), device="cpu").eval()
     pm.load_state_dict(gpt2_state_from_paddle_tpu(state))
     return jm, pm
+
+
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _build_models()
 
 
 def _margin_guard(b):
@@ -1042,16 +1052,23 @@ class _Results(dict):
         return result
 
 
+REFS = register("gateway.model_scenarios", TINY,
+                [f.__name__ for f in MODEL_SCENARIOS],
+                lambda: _Results(_build_models()),
+                lambda results, name: results[name])
+
+
 @pytest.fixture(scope="module")
-def jax_results(models):
-    return _Results(models)
+def jax_results(jax_refs):
+    """Every model scenario computed once a run (test_torch_refcache.py)."""
+    return jax_refs(REFS)
 
 
 @pytest.mark.parametrize("scenario", MODEL_SCENARIOS,
                          ids=lambda f: f.__name__)
 def test_model_scenario_matches_the_jax_gateway(models, jax_results,
                                                 scenario):
-    got = _run(scenario, PORT, models)
+    got = normalize(_run(scenario, PORT, models))
     ref = jax_results[scenario.__name__]
     assert len(got) == len(ref)
     for i, (a, b) in enumerate(zip(got, ref)):

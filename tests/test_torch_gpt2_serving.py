@@ -52,6 +52,7 @@ from paddle_tpu_torch.inference import (ContinuousBatcher,
 from paddle_tpu_torch.models import (GPT2Config, GPT2ForCausalLM,
                                      gpt2_state_from_paddle_tpu)
 from paddle_tpu_torch.models.generation import paged_state
+from test_torch_refcache import jax_refs, normalize, register  # noqa: F401
 
 ATT_RTOL = 1e-5
 LOGIT_REL = 1e-4
@@ -85,8 +86,7 @@ def _gpt2_state(jm):
     return out
 
 
-@pytest.fixture(scope="module")
-def models():
+def _build_models():
     """(jax_model, port_model): the tiny GPT-2 with the same weights."""
     paddle.seed(0)
     jm = JaxGPT2(JaxGPT2Config(**TINY))
@@ -96,6 +96,13 @@ def models():
     pm = GPT2ForCausalLM(GPT2Config(**TINY), device="cpu").eval()
     pm.load_state_dict(gpt2_state_from_paddle_tpu(state))
     return jm, pm
+
+
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _build_models()
 
 
 def _np(t):
@@ -362,10 +369,11 @@ def test_paged_decode_and_fused_steps_match(models):
 
 
 def test_paged_methods_that_wait_raise(models):
-    """Speculative verify waits (queue 1, item 1.5); int8 pools are
-    allocated, and dynamic scales on float pools break the scale contract
-    (int8 pages are held to the JAX package in
-    tests/test_torch_quant_serving.py)."""
+    """Int8 pools are allocated, and dynamic scales on float pools break the
+    scale contract (int8 pages are held to the JAX package in
+    tests/test_torch_quant_serving.py); speculative verify (``logits_all``,
+    queue 1, item 1.5, ported) gives each position's ``logits_at`` logits
+    (held to the JAX package in tests/test_torch_speculative.py)."""
     pm = models[1]
     assert pm.paged_alloc(4, 4, cache_dtype="int8")[0][0].dtype == \
         torch.int8
@@ -374,8 +382,14 @@ def test_paged_methods_that_wait_raise(models):
     bt = torch.zeros(1, 2, dtype=torch.int32)
     with pytest.raises(ValueError, match="non-int8"):
         pm.paged_prefill_into(ids, pools, bt, 4, dynamic_cache_scales=True)
-    with pytest.raises(NotImplementedError, match="item 1.5"):
-        pm.paged_prefill_into(ids, pools, bt, 4, logits_all=True)
+    ids = torch.arange(1, 5, dtype=torch.int64).view(1, 4)
+    got, _ = pm.paged_prefill_into(ids, pm.paged_alloc(4, 4), bt, 4,
+                                   logits_all=True)
+    assert got.shape == (1, 4, 128)
+    for i in range(4):
+        at, _ = pm.paged_prefill_into(ids, pm.paged_alloc(4, 4), bt, 4,
+                                      logits_at=torch.tensor([i]))
+        torch.testing.assert_close(got[:, i], at, rtol=0, atol=1e-5)
 
 
 # -- generate and generate_beam, token for token ----------------------------
@@ -648,12 +662,19 @@ class _Results(dict):
         return result
 
 
+REFS = register("gpt2_serving.scenarios", TINY,
+                [f.__name__ for f in SCENARIOS],
+                lambda: _Results(_side(_build_models(), jax=True)),
+                lambda results, name: results[name])
+
+
 @pytest.fixture(scope="module")
-def jax_results(models):
-    return _Results(_side(models, jax=True))
+def jax_results(jax_refs):
+    """Every scenario computed once a run (test_torch_refcache.py)."""
+    return jax_refs(REFS)
 
 
 @pytest.mark.parametrize("scenario", SCENARIOS, ids=lambda f: f.__name__)
 def test_scenario_matches_the_jax_batcher(models, jax_results, scenario):
     got = scenario(_side(models, jax=False))
-    assert got == jax_results[scenario.__name__]
+    assert normalize(got) == jax_results[scenario.__name__]

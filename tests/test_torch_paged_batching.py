@@ -465,18 +465,26 @@ def _tier_layout(b):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(tier_quant="int8", prefix_cache=True), dict(draft_model=object()),
+    dict(tier_quant="int8", prefix_cache=True), dict(draft_model="self"),
     dict(host_kv_gib=1.0), dict(disk_kv_dir="kv"),
     dict(session_store="sessions")], ids=lambda kw: next(iter(kw)))
 def test_options_that_wait_raise(models, kw, tmp_path):
-    """draft_model waits for queue 1, item 1.5; the tier and session
-    options (item 1.4) build what the JAX package builds from them, with
-    the prefix cache and without it."""
+    """The options that waited to be ported build what the JAX package
+    builds from them: a draft model (queue 1, item 1.5: its pool, k and
+    stats), and the tier and session options (item 1.4), with the prefix
+    cache and without it."""
     name = next(iter(kw))
     if name == "draft_model":
-        with pytest.raises(NotImplementedError, match="item 1.5"):
-            PagedContinuousBatcher(models[64][1], max_batch=2, s_max=32,
-                                   compile=False, **kw)
+        built = []
+        for cls, m in ((PagedContinuousBatcher, models[64][1]),
+                       (jax_serving.PagedContinuousBatcher, models[64][0])):
+            b = cls(m, max_batch=2, s_max=32, block_size=4, compile=False,
+                    draft_model=m, draft_k=3)
+            built.append([b.draft_k, dict(b.spec_stats),
+                          [[tuple(t.shape) for t in kv]
+                           for kv in b._dstate["layers"]],
+                          b._dstate["capacity"], list(b._ddec)])
+        assert built[0] == built[1]
         return
     kw = {k: str(tmp_path / v) if k in ("disk_kv_dir", "session_store")
           else v for k, v in kw.items()}
@@ -647,14 +655,29 @@ def test_generate_paged_capacity_errors(models):
 
 @pytest.mark.parametrize("kw,error,text", [
     (dict(dynamic_cache_scales=True), ValueError, "non-int8"),
-    (dict(logits_all=True), NotImplementedError, "not ported")],
+    (dict(logits_all=True), None, None)],
     ids=["int8", "logits_all"])
 def test_paged_prefill_into_waiting_options_raise(models, kw, error, text):
-    """Speculative verify waits; dynamic int8 scales on float pools break
-    the scale contract (int8 pages: tests/test_torch_quant_serving.py)."""
+    """Dynamic int8 scales on float pools break the scale contract (int8
+    pages: tests/test_torch_quant_serving.py). Speculative verify
+    (``logits_all``, ported) gives every position's logits, each that of
+    ``logits_at`` at that position (held to the JAX package in
+    tests/test_torch_speculative.py)."""
     pm = models[64][1]
+    ids = torch.from_numpy(_ids())
+    bt = torch.arange(8, dtype=torch.int32).view(2, 4)
+    if error is None:
+        got, _ = pm.paged_prefill_into(ids, pm.paged_alloc(8, 4), bt, 4,
+                                       **kw)
+        assert got.shape == (2, 6, 128)
+        for i in range(6):
+            at, _ = pm.paged_prefill_into(
+                ids, pm.paged_alloc(8, 4), bt, 4,
+                logits_at=torch.full((2,), i, dtype=torch.int32))
+            torch.testing.assert_close(got[:, i], at, rtol=0, atol=1e-5)
+        return
     with pytest.raises(error, match=text):
-        pm.paged_prefill_into(torch.from_numpy(_ids()), pm.paged_alloc(8, 4),
+        pm.paged_prefill_into(ids, pm.paged_alloc(8, 4),
                               torch.zeros(2, 4, dtype=torch.int32), 4, **kw)
 
 

@@ -631,7 +631,8 @@ def test_refused_configurations_raise_the_jax_packages_errors(models, case):
 def test_options_that_wait_name_their_roadmap_items(models):
     """tier_quant passes the JAX package's checks and builds the same
     quantizing host tier (queue 1, item 1.4, ported; its codes are held in
-    tests/test_torch_kv_tier.py); draft_model still waits for item 1.5."""
+    tests/test_torch_kv_tier.py); draft_model (item 1.5, ported) with
+    calibrated int8 pages raises the JAX package's error."""
     jm, pm = models["llama"]
     for kw in (dict(tier_quant="int8", prefix_cache=True, host_kv_gib=1.0),
                dict(host_kv_gib=1.0)):
@@ -644,9 +645,14 @@ def test_options_that_wait_name_their_roadmap_items(models):
                                                 None)])
             b.close()
         assert built[0] == built[1]
-    with pytest.raises(NotImplementedError, match="item 1.5"):
-        PagedContinuousBatcher(pm, compile=False, **GEOM,
-                               draft_model=object())
+    seen = []
+    with _Calibrated(models["llama"], _calib_ids()):
+        for cls, m in ((PagedContinuousBatcher, pm),
+                       (jax_serving.PagedContinuousBatcher, jm)):
+            with pytest.raises(ValueError) as info:
+                cls(m, compile=False, **GEOM, kv_quant="int8", draft_model=m)
+            seen.append(str(info.value))
+    assert seen[0] == seen[1] and "draft_model" in seen[0]
 
 
 # -- int8 weights -----------------------------------------------------------
